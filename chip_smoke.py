@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so the script exits non-zero):
+
+1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
+2. build: every CUDA kernel of the port, one ``nvcc`` per source, in
+   parallel; prints the build time and the ``-Xptxas -v`` report;
+3. kernels vs their plain PyTorch versions at the main path's shapes
+   (``powerlaw`` scenario, scale 1.0, seed 0: 4,396 nodes, S = 4,396
+   seed columns), with CUDA-event timings, bounds and library yardsticks;
+4. the main path: the all-sources DHLP-2 fixed-seed solve on the
+   ``kernel`` engine and on the torch-op ``sparse`` engine, which must
+   agree (equal rounds, max|ΔF| ≤ 5e-3, same top-10 candidates);
+5. the dense ``lp_round`` kernel solve (``backend="dense",
+   use_kernel=True``), which must agree with phase 4;
+6. the kernel list: launches of each kernel during phases 4-5 (all must be
+   non-zero), with the phase 3 measurements;
+7. the result line.
+
+It imports nothing of JAX or of the JAX package ``repro``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # HBM3
+F32_TOL = dict(rtol=2e-4, atol=5e-4)  # tests/test_kernels.py::_tol
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+AGREE_TOL = 5e-3  # the agree_dense gate (DESIGN.md §15.3)
+TIE_EPS = 1e-5
+N_DRUGS_CHECKED = 16
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def smi_name_and_limit() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+        check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, *, warmup: int = 2, iters: int = 10) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_close(np, name, got, want, tol) -> float:
+    got = got.float().cpu().numpy()
+    want = want.float().cpu().numpy()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{name}: shape {got.shape} vs {want.shape} or non-finite values")
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    if not np.allclose(got, want, **tol):
+        fail(f"{name}: kernel disagrees with its plain version, max|Δ|={err}")
+    log(f"  {name}: max|Δ| vs plain = {err:.3e} (rtol={tol['rtol']}, atol={tol['atol']})")
+    return err
+
+
+def bound(ops: float, nbytes: float):
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def top10_lists(np, topk_exclusive, extract_outputs, F, norm, known):
+    scores = extract_outputs(F, norm).interactions[(0, 2)]
+    out = []
+    for d in range(N_DRUGS_CHECKED):
+        keep = scores[d][~known[d]]
+        top = np.sort(keep)[::-1]
+        near_tie = top.size > 10 and abs(top[9] - top[10]) <= TIE_EPS
+        out.append((tuple(topk_exclusive(scores[d], 10, known[d])), near_tie))
+    return out
+
+
+def compare_top10(a, b, what):
+    ties = []
+    for d, ((la, tie_a), (lb, tie_b)) in enumerate(zip(a, b)):
+        if la != lb:
+            if not (tie_a or tie_b):
+                fail(f"{what}: drug {d} top-10 differs: {la} vs {lb}")
+            ties.append(d)
+    log(f"  {what}: top-10 lists of drugs 0-{N_DRUGS_CHECKED - 1} identical"
+        + (f" except near-ties (10th/11th within {TIE_EPS}) at drugs {ties}" if ties else ""))
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    from repro_torch.core import extract_outputs, topk_exclusive
+    from repro_torch.core.solver import HeteroLP, LPConfig
+    from repro_torch.engine import make_engine
+    from repro_torch.kernels import SOURCES, launch_counts, reset_launch_counts
+    from repro_torch.kernels.common import build_all
+    from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
+    from repro_torch.kernels.segment_reduce import (
+        csr_round_residual_op,
+        csr_round_residual_ref,
+        rows_per_block,
+    )
+    from repro_torch.scenarios import generate
+
+    t_script = time.perf_counter()
+    # ------------------------------------------------------------ 1. device
+    log("== phase 1: device")
+    dev = torch.device("cuda:0")
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_name_and_limit()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"  torch {torch.__version__} cuda {torch.version.cuda}; device {kind}")
+    log(f"  nvidia-smi: {smi}")
+
+    # ------------------------------------------------------------- 2. build
+    log("== phase 2: build")
+    t0 = time.perf_counter()
+    libs = build_all(list(SOURCES))
+    log(f"  built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s "
+        "(one nvcc per source, in parallel)")
+    for src, lib in libs.items():
+        for line in lib.log.splitlines():
+            if "ptxas info" in line and ("registers" in line or "Compiling" in line
+                                         or "bytes" in line):
+                log(f"  [{src}] {line.strip()}")
+
+    # ----------------------------------------- main-path network and inputs
+    t0 = time.perf_counter()
+    bundle = generate("powerlaw", scale=1.0, seed=0, cache=False)
+    net = bundle.network
+    n = net.num_nodes
+    log(f"  powerlaw scale=1.0 seed=0: {n} nodes {net.sizes}, "
+        f"{net.num_edges} edges, generated in {time.perf_counter() - t0:.1f} s")
+    cfg = LPConfig(alg="dhlp2", alpha=0.5, sigma=1e-4, seed_mode="fixed", autotune=False)
+    t0 = time.perf_counter()
+    kernel_engine = make_engine("kernel", cfg, device=dev)
+    op = kernel_engine.prepare(net)
+    buckets, perm, rank = op.payload.plan
+    nnz = sum(int(torch.count_nonzero(w)) for _, w in buckets)
+    slots = sum(int(nb.numel()) for nb, _ in buckets)
+    widths = [int(nb.shape[1]) for nb, _ in buckets]
+    log(f"  kernel plan: {len(buckets)} buckets, {slots} slots, nnz {nnz}, "
+        f"widths {min(widths)}..{max(widths)}, built in {time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------- 3. kernels vs plain versions
+    log("== phase 3: kernels vs plain versions at main-path shapes")
+    s = n  # all-sources solve: one seed column per node
+    gen = torch.Generator(device=dev).manual_seed(0)
+    F = torch.rand((n, s), generator=gen, device=dev)
+    base = torch.rand((n, s), generator=gen, device=dev)
+    prev = torch.rand((n, s), generator=gen, device=dev)
+    c = 0.25
+    offsets = np.cumsum([0] + [int(nb.shape[0]) for nb, _ in buckets])
+
+    def rows(i):
+        return slice(int(offsets[i]), int(offsets[i + 1]))
+
+    sizes = [int(nb.numel()) for nb, _ in buckets]
+    picks = {"largest": int(np.argmax(sizes)), "smallest": int(np.argmin(sizes))}
+    b1_err = 0.0
+    for storage, sdt, tol in (("f32", torch.float32, F32_TOL), ("bf16", torch.bfloat16, BF16_TOL)):
+        Fq = F.to(sdt)
+        for label, i in picks.items():
+            nbr, wgt = buckets[i]
+            wq = wgt.to(sdt)
+            sl = rows(i)
+            out_k, d_k = csr_round_residual_op(nbr, wq, Fq, base[sl], prev[sl], c=c)
+            torch.cuda.synchronize()
+            out_p, d_p = csr_round_residual_ref(nbr, wq, Fq, base[sl], prev[sl], c)
+            torch.cuda.synchronize()
+            tag = f"csr_round_residual {storage} {label} bucket ({nbr.shape[0]}x{nbr.shape[1]}, S={s})"
+            err = check_close(np, tag, out_k, out_p, tol)
+            check_close(np, tag + " delta", d_k.amax(dim=0, keepdim=True), d_p, tol)
+            if storage == "f32":
+                b1_err = max(b1_err, err)
+            ms_k = cuda_ms(torch, lambda: csr_round_residual_op(
+                nbr, wq, Fq, base[sl], prev[sl], c=c))
+            log(f"    kernel {ms_k:.4f} ms")
+
+    def b1_round():
+        outs, deltas = [], []
+        for i, (nbr, wgt) in enumerate(buckets):
+            sl = rows(i)
+            o, d = csr_round_residual_op(nbr, wgt, F, base[sl], prev[sl], c=c)
+            outs.append(o)
+            deltas.append(d)
+        return torch.cat(outs), torch.cat(deltas).amax(dim=0)
+
+    def b1_round_plain():
+        outs, deltas = [], []
+        for i, (nbr, wgt) in enumerate(buckets):
+            sl = rows(i)
+            o, d = csr_round_residual_ref(nbr, wgt, F, base[sl], prev[sl], c)
+            outs.append(o)
+            deltas.append(d)
+        return torch.cat(outs), torch.cat(deltas).amax(dim=0)
+
+    o1, d1 = b1_round()
+    o2, d2 = b1_round()
+    torch.cuda.synchronize()
+    if not (torch.equal(o1, o2) and torch.equal(d1, d2)):
+        fail("csr_round_residual: two launches gave different bytes")
+    log("  csr_round_residual: two full rounds are byte-identical")
+    op_, dp_ = b1_round_plain()
+    b1_err = max(b1_err, check_close(np, "csr_round_residual full round f32", o1, op_, F32_TOL))
+    check_close(np, "csr_round_residual full round f32 delta", d1, dp_, F32_TOL)
+    del o1, o2, op_, dp_
+
+    # library yardstick: one cuSPARSE CSR product c*base + A@F (no residual)
+    idx_r, idx_c, vals = [], [], []
+    for i, (nbr, wgt) in enumerate(buckets):
+        keep = wgt != 0
+        idx_r.append(torch.nonzero(keep)[:, 0] + int(offsets[i]))
+        idx_c.append(nbr[keep].long())
+        vals.append(wgt[keep].float())
+    A_csr = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(idx_r), torch.cat(idx_c)]),
+        torch.cat(vals),
+        (n, n),
+        check_invariants=True,
+    ).coalesce().to_sparse_csr()
+    lib_out = torch.addmm(base, A_csr, F, beta=c)
+    o1, _ = b1_round()
+    check_close(np, "csr_round_residual vs torch.addmm(CSR)", o1, lib_out, F32_TOL)
+    del o1, lib_out
+    b1_ms = cuda_ms(torch, b1_round)
+    b1_plain_ms = cuda_ms(torch, b1_round_plain, warmup=1, iters=3)
+    b1_lib_ms = cuda_ms(torch, lambda: torch.addmm(base, A_csr, F, beta=c))
+    grid_rows = sum(-(-int(nb.shape[0]) // rows_per_block(int(nb.shape[1]))) for nb, _ in buckets)
+    b1_bound, b1_by = bound(
+        2.0 * nnz * s,
+        4.0 * n * s * 4 + 8.0 * slots + 4.0 * grid_rows * s,
+    )
+    log(f"  csr_round_residual full round ({len(buckets)} buckets): "
+        f"kernel {b1_ms:.4f} ms, plain {b1_plain_ms:.4f} ms, "
+        f"torch.addmm(CSR) {b1_lib_ms:.4f} ms, bound {b1_bound:.4f} ms ({b1_by})")
+    del A_csr
+
+    solver = HeteroLP(LPConfig(backend="dense", use_kernel=True, sigma=1e-4,
+                               seed_mode="fixed"), device=dev)
+    norm = op.norm
+    A_eff, beta2 = solver.operator_arrays(norm)["fused"]
+    out_k = lp_round_op(A_eff, F, base, c=c)
+    torch.cuda.synchronize()
+    out_p = lp_round_ref(A_eff, F, base, c)
+    torch.cuda.synchronize()
+    b2_err = check_close(np, f"lp_round f32 (N={n}, S={s})", out_k, out_p, F32_TOL)
+    o2 = lp_round_op(A_eff, F, base, c=c)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k, o2):
+        fail("lp_round: two launches gave different bytes")
+    del out_k, out_p, o2
+    b2_ms = cuda_ms(torch, lambda: lp_round_op(A_eff, F, base, c=c), iters=5)
+    b2_plain_ms = cuda_ms(torch, lambda: lp_round_ref(A_eff, F, base, c), iters=5)
+    b2_lib_ms = cuda_ms(torch, lambda: torch.addmm(base, A_eff, F, beta=c), iters=5)
+    b2_bound, b2_by = bound(2.0 * n * n * s, 4.0 * (n * n + 3 * n * s))
+    log(f"  lp_round: kernel {b2_ms:.4f} ms, plain {b2_plain_ms:.4f} ms, "
+        f"torch.addmm {b2_lib_ms:.4f} ms, bound {b2_bound:.4f} ms ({b2_by})")
+    del F, base, prev
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- 4. the main path
+    log("== phase 4: DHLP-2 fixed-seed all-sources solve, kernel vs sparse")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_k = kernel_engine.run(net)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    log(f"  kernel engine: {res_k.outer_iters} rounds, {t_k:.3f} s wall "
+        f"({t_k / res_k.outer_iters * 1e3:.2f} ms per round, solve to numpy F)")
+    t0 = time.perf_counter()
+    res_s = make_engine("sparse", cfg, device=dev).run(net)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    log(f"  sparse engine: {res_s.outer_iters} rounds, {t_s:.3f} s wall "
+        f"({t_s / res_s.outer_iters * 1e3:.2f} ms per round)")
+    for res, name in ((res_k, "kernel"), (res_s, "sparse")):
+        if res.F.shape != (n, n) or not np.isfinite(res.F).all() or not res.converged:
+            fail(f"{name} solve: shape {res.F.shape}, finite={np.isfinite(res.F).all()}, "
+                 f"converged={res.converged}")
+    if res_k.outer_iters != res_s.outer_iters:
+        fail(f"outer_iters differ: kernel {res_k.outer_iters} vs sparse {res_s.outer_iters}")
+    if not np.array_equal(res_k.per_column_iters, res_s.per_column_iters):
+        fail("per_column_iters differ between kernel and sparse")
+    gap = float(np.max(np.abs(res_k.F - res_s.F)))
+    log(f"  kernel vs sparse: max|ΔF| = {gap:.3e} (gate {AGREE_TOL})")
+    if gap > AGREE_TOL:
+        fail(f"kernel vs sparse max|ΔF| {gap} > {AGREE_TOL}")
+    known = net.R[(0, 2)] > 0
+    top_k = top10_lists(np, topk_exclusive, extract_outputs, res_k.F, norm, known)
+    top_s = top10_lists(np, topk_exclusive, extract_outputs, res_s.F, norm, known)
+    compare_top10(top_k, top_s, "kernel vs sparse")
+    del res_s
+
+    # ------------------------------------------- 5. the dense kernel solve
+    log("== phase 5: dense lp_round solve (backend=dense, use_kernel=True)")
+    t0 = time.perf_counter()
+    res_d = solver.run(norm)
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    log(f"  dense use_kernel: {res_d.outer_iters} rounds, {t_d:.3f} s wall "
+        f"({t_d / res_d.outer_iters * 1e3:.2f} ms per round)")
+    if not np.isfinite(res_d.F).all() or res_d.outer_iters != res_k.outer_iters:
+        fail(f"dense solve: finite={np.isfinite(res_d.F).all()}, "
+             f"outer_iters {res_d.outer_iters} vs {res_k.outer_iters}")
+    gap_d = float(np.max(np.abs(res_d.F - res_k.F)))
+    log(f"  dense use_kernel vs kernel engine: max|ΔF| = {gap_d:.3e} (gate {AGREE_TOL})")
+    if gap_d > AGREE_TOL:
+        fail(f"dense vs kernel max|ΔF| {gap_d} > {AGREE_TOL}")
+    compare_top10(top_k, top10_lists(np, topk_exclusive, extract_outputs, res_d.F, norm, known),
+                  "dense use_kernel vs kernel")
+    counts = launch_counts()
+    del res_d
+
+    # ------------------- where the time goes: one traced kernel-engine solve
+    log("== profile: kernel-engine solve under torch.profiler")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kernel_engine.run(net)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+    averages = prof.key_averages()
+    dev_ms = {e.key: e.self_device_time_total / 1e3 for e in averages}
+    total_dev = sum(dev_ms.values())
+    log(f"  traced wall {t_p:.3f} s, device time {total_dev:.1f} ms "
+        f"(busy share {total_dev / (t_p * 1e3):.3f})")
+    for e in sorted(averages, key=lambda e: -dev_ms[e.key])[:8]:
+        log(f"    {dev_ms[e.key]:9.2f} ms  x{e.count:<5d} {e.key[:70]}")
+
+    # ------------------------------------------------ 6. the kernel list
+    log("== phase 6: kernels")
+    for name, cnt in counts.items():
+        if cnt <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    kernels = [
+        {
+            "name": "csr_round_residual",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/csr_round_residual.cu",
+            "replaces": "src/repro/kernels/segment_reduce/kernel.py:246",
+            "launches": counts["csr_round_residual"],
+            "max_abs_err": b1_err,
+            "ms": b1_ms,
+            "plain_ms": b1_plain_ms,
+            "bound_ms": b1_bound,
+            "bound_by": b1_by,
+            "library_ms": b1_lib_ms,
+        },
+        {
+            "name": "lp_round",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/lp_round.cu",
+            "replaces": "src/repro/kernels/lp_blockspmm/kernel.py:48",
+            "launches": counts["lp_round"],
+            "max_abs_err": b2_err,
+            "ms": b2_ms,
+            "plain_ms": b2_plain_ms,
+            "bound_ms": b2_bound,
+            "bound_by": b2_by,
+            "library_ms": b2_lib_ms,
+        },
+    ]
+    log(f"  total {time.perf_counter() - t_script:.1f} s")
+    print(smi_name_and_limit(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    # ------------------------------------------------------ 7. the result
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

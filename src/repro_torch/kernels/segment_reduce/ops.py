@@ -1,0 +1,120 @@
+"""Public wrapper for the fused blocked-CSR superstep.
+
+A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
+the hand-written kernel ``csrc/csr_round_residual.cu`` or raises — there
+is no fallback from the card to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.common import (
+    MAX_INT32,
+    LaunchCounter,
+    cdiv,
+    check_cuda_operand,
+    check_launch,
+    load_library,
+    on_cpu,
+    stream_handle,
+)
+from repro_torch.kernels.segment_reduce.ref import csr_round_residual_ref
+
+SOURCE = "csr_round_residual.cu"
+LAUNCHES = LaunchCounter("csr_round_residual")
+
+# A block walks rows_per_block rows × width slots per column; aim for
+# about this many slots per block so narrow buckets still get long loops
+# and wide ones (up to thousands of slots) one row per block.
+_SLOTS_PER_BLOCK = 4096
+_MAX_ROWS_PER_BLOCK = 64
+_STORAGE = (torch.float32, torch.bfloat16)
+
+
+def rows_per_block(width: int) -> int:
+    """Rows one CUDA block covers for a bucket of this width."""
+    return max(1, min(_MAX_ROWS_PER_BLOCK, _SLOTS_PER_BLOCK // max(1, width)))
+
+
+def _launcher():
+    fn = load_library(SOURCE).cdll.csr_round_residual_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_float,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def csr_round_residual_op(
+    nbr: torch.Tensor,
+    wgt: torch.Tensor,
+    F: torch.Tensor,
+    base: torch.Tensor,
+    prev: torch.Tensor,
+    *,
+    c: float,
+    out: Optional[torch.Tensor] = None,
+) -> tuple:
+    """Fused superstep for one bucket: round plus max-|out − prev| partial.
+
+    Returns ``(out, delta)``; ``delta`` has one max-partial row per row
+    block (``(cdiv(M, rows_per_block(D)), S)`` from the kernel, ``(1, S)``
+    from the plain version) — callers reduce with ``amax(dim=0)`` after
+    concatenating buckets.  ``out``, when given, is an ``(M, S)`` f32
+    buffer the result is written into (the engine passes its slice of the
+    next state, so no per-round concatenation is needed).
+    """
+    if on_cpu(nbr, wgt, F, base, prev):
+        res, delta = csr_round_residual_ref(nbr, wgt, F, base, prev, c)
+        if out is not None:
+            out.copy_(res)
+            res = out
+        return res, delta
+    dev = F.device
+    if dev.type != "cuda":
+        raise ValueError(f"csr_round_residual: unsupported device {dev}")
+    m, d = nbr.shape
+    n, s = F.shape
+    check_cuda_operand("nbr", nbr, device=dev, dtypes=(torch.int32,), shape=(m, d))
+    check_cuda_operand("wgt", wgt, device=dev, dtypes=(F.dtype,), shape=(m, d))
+    check_cuda_operand("F", F, device=dev, dtypes=_STORAGE, shape=(n, s))
+    for name, t in (("base", base), ("prev", prev)):
+        check_cuda_operand(name, t, device=dev, dtypes=(torch.float32,), shape=(m, s))
+    if max(m * d, n * s, m * s) > MAX_INT32:
+        raise ValueError("csr_round_residual: operand larger than int32 indexing")
+    if out is None:
+        out = torch.empty((m, s), dtype=torch.float32, device=dev)
+    else:
+        check_cuda_operand("out", out, device=dev, dtypes=(torch.float32,), shape=(m, s))
+    rpb = rows_per_block(d)
+    delta = torch.empty((cdiv(m, rpb), s), dtype=torch.float32, device=dev)
+    if m == 0 or s == 0:
+        return out, delta
+    err = _launcher()(
+        nbr.data_ptr(),
+        wgt.data_ptr(),
+        F.data_ptr(),
+        base.data_ptr(),
+        prev.data_ptr(),
+        out.data_ptr(),
+        delta.data_ptr(),
+        m,
+        d,
+        s,
+        rpb,
+        float(c),
+        int(F.dtype == torch.bfloat16),
+        dev.index,
+        stream_handle(dev),
+    )
+    check_launch("csr_round_residual", err)
+    LAUNCHES.add()
+    return out, delta
