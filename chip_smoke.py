@@ -10,17 +10,30 @@ Phases (each raises on failure, so the script exits non-zero):
 1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
 2. build: every CUDA kernel of the port, one ``nvcc`` per source, in
    parallel; prints the build time and the ``-Xptxas -v`` report;
-3. kernels vs their plain PyTorch versions at the main path's shapes
+3. kernels vs their plain PyTorch versions at their paths' shapes
    (``powerlaw`` scenario, scale 1.0, seed 0: 4,396 nodes, S = 4,396
-   seed columns), with CUDA-event timings, bounds and library yardsticks;
+   seed columns), with CUDA-event timings, bounds and library yardsticks:
+   ``csr_round_residual`` on the fused plan's buckets, ``lp_round`` on
+   the dense operator, ``csr_round`` on every bucket of the legacy
+   block-rows layout;
 4. the main path: the all-sources DHLP-2 fixed-seed solve on the
    ``kernel`` engine and on the torch-op ``sparse`` engine, which must
    agree (equal rounds, max|ΔF| ≤ 5e-3, same top-10 candidates);
 5. the dense ``lp_round`` kernel solve (``backend="dense",
    use_kernel=True``), which must agree with phase 4;
-6. the kernel list: launches of each kernel during phases 4-5 (all must be
-   non-zero), with the phase 3 measurements;
-7. the result line.
+6. the legacy ``fused_superstep=False`` DHLP-2 solve on ``kernel``
+   (through ``csr_round``, one launch per bucket and round) and on
+   ``sparse``, both held to phase 4's fused kernel-engine result;
+7. DHLP-1 on the blocked-CSR engines: the recovery problem (10 % of the
+   drug–target edges hidden, 32 seed rows) on ``sparse`` fused, ``sparse``
+   legacy and ``dense``, then the all-sources solve on ``sparse`` fused
+   and ``dense``, which must agree (max|ΔF| ≤ 5e-3, equal rounds);
+8. the kernel list: launches of each kernel on its path (phases 4-5 for
+   ``csr_round_residual`` and ``lp_round``, phase 6 for ``csr_round``;
+   all must be non-zero), with the phase 3 measurements;
+9. the result line.
+
+Phases 4, 6 and 7 each also trace one solve with ``torch.profiler``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -98,6 +111,43 @@ def bound(ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def trace_solve(torch, label: str, fn) -> None:
+    """Run ``fn`` once under ``torch.profiler``; print the wall time, the
+    device's busy time (the union of its kernel and copy intervals) and
+    the eight device entries that took the most time.
+
+    Only device-side events count: a CPU op's ``self_device_time_total``
+    repeats the time of the kernels it launched, so summing both would
+    count that time twice.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    log(f"== profile: {label} under torch.profiler")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    busy_us, end = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if end is None or start > end:
+            busy_us += stop - start
+            end = stop
+        elif stop > end:
+            busy_us += stop - end
+            end = stop
+    by_name = {}
+    for e in events:
+        total, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+    log(f"  traced wall {t_p:.3f} s, device busy {busy_us / 1e3:.1f} ms "
+        f"(busy share {busy_us / (t_p * 1e6):.3f}; {len(events)} device events)")
+    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"    {total / 1e3:9.2f} ms  x{count:<5d} {name[:70]}")
+
+
 def top10_lists(np, topk_exclusive, extract_outputs, F, norm, known):
     scores = extract_outputs(F, norm).interactions[(0, 2)]
     out = []
@@ -141,11 +191,13 @@ def main() -> int:
     from repro_torch.kernels.common import build_all
     from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
     from repro_torch.kernels.segment_reduce import (
+        csr_round_op,
+        csr_round_ref,
         csr_round_residual_op,
         csr_round_residual_ref,
         rows_per_block,
     )
-    from repro_torch.scenarios import generate
+    from repro_torch.scenarios import generate, make_recovery_problem, solve_recovery
 
     t_script = time.perf_counter()
     # ------------------------------------------------------------ 1. device
@@ -302,7 +354,81 @@ def main() -> int:
     b2_bound, b2_by = bound(2.0 * n * n * s, 4.0 * (n * n + 3 * n * s))
     log(f"  lp_round: kernel {b2_ms:.4f} ms, plain {b2_plain_ms:.4f} ms, "
         f"torch.addmm {b2_lib_ms:.4f} ms, bound {b2_bound:.4f} ms ({b2_by})")
-    del F, base, prev
+
+    # csr_round on the legacy (fused_superstep=False) block-rows layout
+    t0 = time.perf_counter()
+    legacy_engine = make_engine("kernel", cfg, device=dev, fused_superstep=False)
+    lbuckets, _ = legacy_engine.prepare(net).payload.fused
+    lnnz = sum(int(torch.count_nonzero(w)) for _, _, w in lbuckets)
+    lslots = sum(int(nb.numel()) for _, nb, _ in lbuckets)
+    lwidths = [int(nb.shape[1]) for _, nb, _ in lbuckets]
+    log(f"  legacy layout: {len(lbuckets)} buckets, {lslots} slots, nnz {lnnz}, "
+        f"widths {min(lwidths)}..{max(lwidths)}, built in {time.perf_counter() - t0:.1f} s")
+    lbase = [base[rows] for rows, _, _ in lbuckets]
+    loffsets = np.cumsum([0] + [int(nb.shape[0]) for _, nb, _ in lbuckets])
+    lout = torch.empty_like(F)
+    b3_err = 0.0
+    for i, (_, nbr, wgt) in enumerate(lbuckets):
+        out_k = csr_round_op(nbr, wgt, F, lbase[i], c=c)
+        torch.cuda.synchronize()
+        out_p = csr_round_ref(nbr, wgt, F, lbase[i], c)
+        got = out_k.cpu().numpy()
+        want = out_p.cpu().numpy()
+        err = float(np.max(np.abs(got - want)))
+        if not (np.isfinite(got).all() and np.allclose(got, want, **F32_TOL)):
+            fail(f"csr_round f32 bucket {i} ({nbr.shape[0]}x{nbr.shape[1]}): "
+                 f"kernel disagrees with its plain version, max|Δ|={err}")
+        b3_err = max(b3_err, err)
+    log(f"  csr_round f32, all {len(lbuckets)} legacy buckets (S={s}): "
+        f"max|Δ| vs plain = {b3_err:.3e} (rtol={F32_TOL['rtol']}, atol={F32_TOL['atol']})")
+    widest = int(np.argmax(lwidths))
+    _, nbr, wgt = lbuckets[widest]
+    Fq, wq = F.to(torch.bfloat16), wgt.to(torch.bfloat16)
+    out_k = csr_round_op(nbr, wq, Fq, lbase[widest], c=c)
+    torch.cuda.synchronize()
+    check_close(np, f"csr_round bf16 widest bucket ({nbr.shape[0]}x{nbr.shape[1]}, S={s})",
+                out_k, csr_round_ref(nbr, wq, Fq, lbase[widest], c), BF16_TOL)
+    del Fq, wq, out_k
+
+    def b3_round():
+        for i, (_, nbr, wgt) in enumerate(lbuckets):
+            csr_round_op(nbr, wgt, F, lbase[i], c=c,
+                         out=lout[int(loffsets[i]):int(loffsets[i + 1])])
+        return lout
+
+    def b3_round_plain():
+        return torch.cat([csr_round_ref(nbr, wgt, F, lbase[i], c)
+                          for i, (_, nbr, wgt) in enumerate(lbuckets)])
+
+    first = b3_round().clone()
+    torch.cuda.synchronize()
+    if not torch.equal(first, b3_round()):
+        fail("csr_round: two launches gave different bytes")
+    log(f"  csr_round: two full legacy rounds ({len(lbuckets)} launches each) are byte-identical")
+    # library yardstick: one cuSPARSE CSR product c*base + A_bucket@F per bucket
+    lcsr = []
+    for _, nbr, wgt in lbuckets:
+        keep = wgt != 0
+        lcsr.append(torch.sparse_coo_tensor(
+            torch.stack([torch.nonzero(keep)[:, 0], nbr[keep].long()]),
+            wgt[keep], (nbr.shape[0], n), check_invariants=True,
+        ).coalesce().to_sparse_csr())
+
+    def b3_round_lib():
+        return [torch.addmm(lbase[i], a, F, beta=c) for i, a in enumerate(lcsr)]
+
+    check_close(np, "csr_round full legacy round vs torch.addmm(CSR) per bucket",
+                first, torch.cat(b3_round_lib()), F32_TOL)
+    del first
+    b3_ms = cuda_ms(torch, b3_round)
+    b3_plain_ms = cuda_ms(torch, b3_round_plain, warmup=1, iters=3)
+    b3_lib_ms = cuda_ms(torch, b3_round_lib)
+    b3_bound, b3_by = bound(2.0 * lnnz * s, 4.0 * n * s * 3 + 8.0 * lslots)
+    log(f"  csr_round full legacy round ({len(lbuckets)} buckets): "
+        f"kernel {b3_ms:.4f} ms, plain {b3_plain_ms:.4f} ms, "
+        f"torch.addmm(CSR) x{len(lcsr)} {b3_lib_ms:.4f} ms, bound {b3_bound:.4f} ms ({b3_by}; "
+        f"{2.0 * lslots * s / 1e9:.1f} GFLOP with padding slots)")
+    del F, base, prev, lbase, lout, lcsr
     torch.cuda.empty_cache()
 
     # --------------------------------------------------- 4. the main path
@@ -360,27 +486,110 @@ def main() -> int:
     del res_d
 
     # ------------------- where the time goes: one traced kernel-engine solve
-    log("== profile: kernel-engine solve under torch.profiler")
-    from torch.profiler import ProfilerActivity, profile
+    trace_solve(torch, "kernel-engine solve", lambda: kernel_engine.run(net))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        kernel_engine.run(net)
+    # ------------------------------------------ 6. the legacy DHLP-2 loops
+    log("== phase 6: legacy fused_superstep=False DHLP-2 solve, kernel and sparse")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_lk = legacy_engine.run(net)
+    torch.cuda.synchronize()
+    t_lk = time.perf_counter() - t0
+    legacy_counts = launch_counts()
+    want_launches = len(lbuckets) * res_lk.outer_iters
+    log(f"  kernel legacy: {res_lk.outer_iters} rounds, {t_lk:.3f} s wall "
+        f"({t_lk / res_lk.outer_iters * 1e3:.2f} ms per round); launches {legacy_counts}")
+    if legacy_counts["csr_round"] != want_launches:
+        fail(f"csr_round launched {legacy_counts['csr_round']} times, expected "
+             f"{len(lbuckets)} buckets x {res_lk.outer_iters} rounds = {want_launches}")
+    if legacy_counts["csr_round_residual"] or legacy_counts["lp_round"]:
+        fail(f"the legacy kernel loop launched other kernels: {legacy_counts}")
+    t0 = time.perf_counter()
+    res_ls = make_engine("sparse", cfg, device=dev, fused_superstep=False).run(net)
+    torch.cuda.synchronize()
+    t_ls = time.perf_counter() - t0
+    log(f"  sparse legacy: {res_ls.outer_iters} rounds, {t_ls:.3f} s wall "
+        f"({t_ls / res_ls.outer_iters * 1e3:.2f} ms per round)")
+    if launch_counts() != legacy_counts:
+        fail("the torch-op sparse legacy loop launched a CUDA kernel of the port")
+    for res, name in ((res_lk, "kernel legacy"), (res_ls, "sparse legacy")):
+        if res.F.shape != (n, n) or not np.isfinite(res.F).all() or not res.converged:
+            fail(f"{name} solve: shape {res.F.shape}, finite={np.isfinite(res.F).all()}, "
+                 f"converged={res.converged}")
+        if res.outer_iters != res_k.outer_iters:
+            fail(f"{name}: {res.outer_iters} rounds vs fused kernel {res_k.outer_iters}")
+        if not np.array_equal(res.per_column_iters, res_k.per_column_iters):
+            fail(f"{name}: per_column_iters differ from the fused kernel engine's")
+        gap = float(np.max(np.abs(res.F - res_k.F)))
+        log(f"  {name} vs fused kernel: max|ΔF| = {gap:.3e} (gate {AGREE_TOL})")
+        if gap > AGREE_TOL:
+            fail(f"{name} vs fused kernel max|ΔF| {gap} > {AGREE_TOL}")
+        compare_top10(top_k, top10_lists(np, topk_exclusive, extract_outputs, res.F, norm, known),
+                      f"{name} vs fused kernel")
+    del res_lk, res_ls, res_k
+    trace_solve(torch, "legacy kernel-engine solve", lambda: legacy_engine.run(net))
+
+    # ------------------------------------- 7. DHLP-1 on blocked-CSR engines
+    log("== phase 7: DHLP-1 on sparse (fused and legacy) and dense")
+    cfg1 = LPConfig(alg="dhlp1", alpha=0.5, sigma=1e-4, autotune=False)
+    problem = make_recovery_problem(bundle, holdout_frac=0.1, max_entities=32, seed=0)
+    log(f"  recovery problem: pair {problem.pair}, {problem.Y.shape[1]} seed rows, "
+        f"{problem.num_heldout} held-out edges")
+    reset_launch_counts()
+    dhlp1 = {}
+    for name, backend, kw in (("sparse fused", "sparse", {}),
+                              ("sparse legacy", "sparse", {"fused_superstep": False}),
+                              ("dense", "dense", {})):
         torch.cuda.synchronize()
-        t_p = time.perf_counter() - t0
-    averages = prof.key_averages()
-    dev_ms = {e.key: e.self_device_time_total / 1e3 for e in averages}
-    total_dev = sum(dev_ms.values())
-    log(f"  traced wall {t_p:.3f} s, device time {total_dev:.1f} ms "
-        f"(busy share {total_dev / (t_p * 1e3):.3f})")
-    for e in sorted(averages, key=lambda e: -dev_ms[e.key])[:8]:
-        log(f"    {dev_ms[e.key]:9.2f} ms  x{e.count:<5d} {e.key[:70]}")
+        t0 = time.perf_counter()
+        res = solve_recovery(problem, backend, lp=cfg1, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not np.isfinite(res.F).all() or not res.converged or res.inner_iters <= 0:
+            fail(f"DHLP-1 {name}: finite={np.isfinite(res.F).all()}, "
+                 f"converged={res.converged}, inner_iters={res.inner_iters}")
+        m = problem.metrics(res.F)
+        log(f"  {name}: recovery_auc {m['recovery_auc']:.6f}, aupr {m['recovery_aupr']:.6f}, "
+            f"{res.outer_iters} outer / {res.inner_iters} inner rounds, {wall:.3f} s wall")
+        dhlp1[name] = res
+    for name in ("sparse fused", "sparse legacy"):
+        gap = float(np.max(np.abs(dhlp1[name].F - dhlp1["dense"].F)))
+        log(f"  DHLP-1 recovery {name} vs dense: max|ΔF| = {gap:.3e} (gate {AGREE_TOL})")
+        if gap > AGREE_TOL or dhlp1[name].outer_iters != dhlp1["dense"].outer_iters:
+            fail(f"DHLP-1 recovery {name} vs dense: max|ΔF| {gap}, outer_iters "
+                 f"{dhlp1[name].outer_iters} vs {dhlp1['dense'].outer_iters}")
+    del dhlp1
+    alls = {}
+    for name, backend in (("sparse fused", "sparse"), ("dense", "dense")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = make_engine(backend, cfg1, device=dev).run(net)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if res.F.shape != (n, n) or not np.isfinite(res.F).all() or not res.converged:
+            fail(f"DHLP-1 all-sources {name}: shape {res.F.shape}, "
+                 f"finite={np.isfinite(res.F).all()}, converged={res.converged}")
+        log(f"  DHLP-1 all-sources {name}: {res.outer_iters} outer / {res.inner_iters} inner "
+            f"rounds, {wall:.3f} s wall")
+        alls[name] = res
+    gap = float(np.max(np.abs(alls["sparse fused"].F - alls["dense"].F)))
+    log(f"  DHLP-1 all-sources sparse fused vs dense: max|ΔF| = {gap:.3e} (gate {AGREE_TOL})")
+    if gap > AGREE_TOL or alls["sparse fused"].outer_iters != alls["dense"].outer_iters:
+        fail(f"DHLP-1 all-sources sparse vs dense: max|ΔF| {gap}, outer_iters "
+             f"{alls['sparse fused'].outer_iters} vs {alls['dense'].outer_iters}")
+    log(f"  launches on the DHLP-1 path (torch-op engines): {launch_counts()}")
+    del alls
+    dhlp1_engine = make_engine("sparse", cfg1, device=dev)
+    dhlp1_engine.prepare(net)
+    trace_solve(torch, "DHLP-1 all-sources sparse fused solve", lambda: dhlp1_engine.run(net))
 
-    # ------------------------------------------------ 6. the kernel list
-    log("== phase 6: kernels")
+    # ------------------------------------------------ 8. the kernel list
+    log("== phase 8: kernels")
+    counts["csr_round"] = legacy_counts["csr_round"]
     for name, cnt in counts.items():
         if cnt <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"kernel {name} was not launched on its path")
     kernels = [
         {
             "name": "csr_round_residual",
@@ -394,6 +603,19 @@ def main() -> int:
             "bound_ms": b1_bound,
             "bound_by": b1_by,
             "library_ms": b1_lib_ms,
+        },
+        {
+            "name": "csr_round",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/csr_round.cu",
+            "replaces": "src/repro/kernels/segment_reduce/kernel.py:192",
+            "launches": counts["csr_round"],
+            "max_abs_err": b3_err,
+            "ms": b3_ms,
+            "plain_ms": b3_plain_ms,
+            "bound_ms": b3_bound,
+            "bound_by": b3_by,
+            "library_ms": b3_lib_ms,
         },
         {
             "name": "lp_round",
@@ -412,7 +634,7 @@ def main() -> int:
     log(f"  total {time.perf_counter() - t_script:.1f} s")
     print(smi_name_and_limit(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # ------------------------------------------------------ 7. the result
+    # ------------------------------------------------------ 9. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -7,11 +7,14 @@ obvious counterpart:
 
 * ``core``      — network container, normalization, blocked-CSR, ranking,
                   numpy oracles, and the dense solver (``HeteroLP``);
-* ``kernels``   — hand-written CUDA kernels for the two TPU kernels on the
-                  main path, each beside its plain PyTorch version;
+* ``kernels``   — hand-written CUDA kernels for the TPU kernels on the
+                  system's paths, each beside its plain PyTorch version;
 * ``engine``    — the backend registry (``make_engine``) with the
                   ``dense``, ``sparse`` and ``kernel`` engines;
-* ``scenarios`` — the seeded network generators.
+* ``scenarios`` — the seeded network generators and the recovery /
+                  k-fold evaluation protocols;
+* ``eval``      — AUC, AUPR, BestACC and k-fold cross-validation;
+* ``data``      — the synthetic drug–disease–target gold standard.
 
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``
 (:func:`repro_torch.device.resolve_device`).

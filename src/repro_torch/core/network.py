@@ -100,6 +100,13 @@ class HeteroNetwork:
             total += 2 * int(np.count_nonzero(r))
         return total
 
+    def type_of_node(self) -> np.ndarray:
+        """Global-node-id -> type-id vector (the ``id % 3`` analogue)."""
+        out = np.empty(self.num_nodes, dtype=np.int32)
+        for i, (off, n) in enumerate(zip(self.offsets, self.sizes)):
+            out[off : off + n] = i
+        return out
+
     def block_slices(self) -> List[slice]:
         return [slice(off, off + n) for off, n in zip(self.offsets, self.sizes)]
 
@@ -218,6 +225,22 @@ class HeteroNetwork:
             r[u, v] = w
 
         return HeteroNetwork(P=P, R=R, type_names=self.type_names)
+
+    def with_masked_fold(
+        self, pair: TypePair, mask: np.ndarray
+    ) -> "HeteroNetwork":
+        """Return a copy with the given association entries zeroed.
+
+        Used by k-fold CV (paper §6.2.1) and the recovery protocol:
+        ``mask`` is a boolean array over ``R[pair]`` marking held-out
+        entries.
+        """
+        i, j = min(pair), max(pair)
+        R = {k: v.copy() for k, v in self.R.items()}
+        R[(i, j)] = np.where(mask, 0.0, R[(i, j)])
+        return HeteroNetwork(
+            P=[p.copy() for p in self.P], R=R, type_names=self.type_names
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,6 +4,7 @@
 kernel                 replaces (Pallas TPU kernel)                 source
 =====================  ==========================================  ====================
 csr_round_residual     repro/kernels/segment_reduce/kernel.py       csrc/csr_round_residual.cu
+csr_round              repro/kernels/segment_reduce/kernel.py       csrc/csr_round.cu
 lp_round               repro/kernels/lp_blockspmm/kernel.py         csrc/lp_round.cu
 =====================  ==========================================  ====================
 
@@ -15,16 +16,27 @@ the wrapper's :class:`~repro_torch.kernels.common.LaunchCounter`.
 from repro_torch.kernels import lp_blockspmm, segment_reduce
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
+    csr_round_op,
+    csr_round_ref,
     csr_round_residual_op,
     csr_round_residual_ref,
 )
 
 #: every kernel's launch counter, by kernel name
 COUNTERS = {
-    c.name: c for c in (segment_reduce.LAUNCHES, lp_blockspmm.LAUNCHES)
+    c.name: c
+    for c in (
+        segment_reduce.LAUNCHES,
+        segment_reduce.ROUND_LAUNCHES,
+        lp_blockspmm.LAUNCHES,
+    )
 }
 #: every kernel's CUDA source under ``csrc/``
-SOURCES = (segment_reduce.ops.SOURCE, lp_blockspmm.ops.SOURCE)
+SOURCES = (
+    segment_reduce.ops.SOURCE,
+    segment_reduce.ops.ROUND_SOURCE,
+    lp_blockspmm.ops.SOURCE,
+)
 
 
 def launch_counts() -> dict:
@@ -39,6 +51,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "COUNTERS",
     "SOURCES",
+    "csr_round_op",
+    "csr_round_ref",
     "csr_round_residual_op",
     "csr_round_residual_ref",
     "launch_counts",

@@ -1,8 +1,9 @@
-"""Public wrapper for the fused blocked-CSR superstep.
+"""Public wrappers for the fused blocked-CSR rounds.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the hand-written kernel ``csrc/csr_round_residual.cu`` or raises — there
-is no fallback from the card to the plain version.
+the hand-written kernel (``csrc/csr_round_residual.cu``,
+``csrc/csr_round.cu``) or raises — there is no fallback from the card to
+the plain version.
 """
 
 from __future__ import annotations
@@ -22,10 +23,15 @@ from repro_torch.kernels.common import (
     on_cpu,
     stream_handle,
 )
-from repro_torch.kernels.segment_reduce.ref import csr_round_residual_ref
+from repro_torch.kernels.segment_reduce.ref import (
+    csr_round_ref,
+    csr_round_residual_ref,
+)
 
 SOURCE = "csr_round_residual.cu"
 LAUNCHES = LaunchCounter("csr_round_residual")
+ROUND_SOURCE = "csr_round.cu"
+ROUND_LAUNCHES = LaunchCounter("csr_round")
 
 # A block walks rows_per_block rows × width slots per column; aim for
 # about this many slots per block so narrow buckets still get long loops
@@ -40,10 +46,10 @@ def rows_per_block(width: int) -> int:
     return max(1, min(_MAX_ROWS_PER_BLOCK, _SLOTS_PER_BLOCK // max(1, width)))
 
 
-def _launcher():
-    fn = load_library(SOURCE).cdll.csr_round_residual_launch
+def _launcher(source: str, symbol: str, n_pointers: int):
+    fn = getattr(load_library(source).cdll, symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 4 + [
             ctypes.c_float,
             ctypes.c_int,
             ctypes.c_int,
@@ -51,6 +57,71 @@ def _launcher():
         ]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_bucket(name, nbr, wgt, F, base):
+    """Operand checks shared by both wrappers; returns ``(m, d, s)``."""
+    dev = F.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    m, d = nbr.shape
+    n, s = F.shape
+    check_cuda_operand("nbr", nbr, device=dev, dtypes=(torch.int32,), shape=(m, d))
+    check_cuda_operand("wgt", wgt, device=dev, dtypes=(F.dtype,), shape=(m, d))
+    check_cuda_operand("F", F, device=dev, dtypes=_STORAGE, shape=(n, s))
+    check_cuda_operand("base", base, device=dev, dtypes=(torch.float32,), shape=(m, s))
+    if max(m * d, n * s, m * s) > MAX_INT32:
+        raise ValueError(f"{name}: operand larger than int32 indexing")
+    return m, d, s
+
+
+def csr_round_op(
+    nbr: torch.Tensor,
+    wgt: torch.Tensor,
+    F: torch.Tensor,
+    base: torch.Tensor,
+    *,
+    c: float,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused ``c·base + A_bucket @ F`` round for one bucket, in ``F.dtype``.
+
+    ``out``, when given, is an ``(M, S)`` buffer of ``F``'s dtype the
+    result is written into (the legacy loop passes its slice of the
+    bucket-order state).
+    """
+    if on_cpu(nbr, wgt, F, base):
+        res = csr_round_ref(nbr, wgt, F, base, c)
+        if out is not None:
+            out.copy_(res)
+            res = out
+        return res
+    m, d, s = _check_bucket("csr_round", nbr, wgt, F, base)
+    dev = F.device
+    if out is None:
+        out = torch.empty((m, s), dtype=F.dtype, device=dev)
+    else:
+        check_cuda_operand("out", out, device=dev, dtypes=(F.dtype,), shape=(m, s))
+    if m == 0 or s == 0:
+        return out
+    err = _launcher(ROUND_SOURCE, "csr_round_launch", 5)(
+        nbr.data_ptr(),
+        wgt.data_ptr(),
+        F.data_ptr(),
+        base.data_ptr(),
+        out.data_ptr(),
+        m,
+        d,
+        s,
+        rows_per_block(d),
+        float(c),
+        int(F.dtype == torch.bfloat16),
+        dev.index,
+        stream_handle(dev),
+    )
+    check_launch("csr_round", err)
+    ROUND_LAUNCHES.add()
+    return out
 
 
 def csr_round_residual_op(
@@ -78,18 +149,9 @@ def csr_round_residual_op(
             out.copy_(res)
             res = out
         return res, delta
+    m, d, s = _check_bucket("csr_round_residual", nbr, wgt, F, base)
     dev = F.device
-    if dev.type != "cuda":
-        raise ValueError(f"csr_round_residual: unsupported device {dev}")
-    m, d = nbr.shape
-    n, s = F.shape
-    check_cuda_operand("nbr", nbr, device=dev, dtypes=(torch.int32,), shape=(m, d))
-    check_cuda_operand("wgt", wgt, device=dev, dtypes=(F.dtype,), shape=(m, d))
-    check_cuda_operand("F", F, device=dev, dtypes=_STORAGE, shape=(n, s))
-    for name, t in (("base", base), ("prev", prev)):
-        check_cuda_operand(name, t, device=dev, dtypes=(torch.float32,), shape=(m, s))
-    if max(m * d, n * s, m * s) > MAX_INT32:
-        raise ValueError("csr_round_residual: operand larger than int32 indexing")
+    check_cuda_operand("prev", prev, device=dev, dtypes=(torch.float32,), shape=(m, s))
     if out is None:
         out = torch.empty((m, s), dtype=torch.float32, device=dev)
     else:
@@ -98,7 +160,7 @@ def csr_round_residual_op(
     delta = torch.empty((cdiv(m, rpb), s), dtype=torch.float32, device=dev)
     if m == 0 or s == 0:
         return out, delta
-    err = _launcher()(
+    err = _launcher(SOURCE, "csr_round_residual_launch", 7)(
         nbr.data_ptr(),
         wgt.data_ptr(),
         F.data_ptr(),

@@ -1,8 +1,8 @@
-"""Plain PyTorch version of the padded-CSR fused superstep.
+"""Plain PyTorch versions of the padded-CSR fused rounds.
 
 ``out[v] = c·base[v] + Σ_k wgt[v, k] · F[nbr[v, k]]`` — zero-weight pads
-are no-ops.  The CPU tests hold it against ``repro``'s oracle and Pallas
-kernel; on the card it is the yardstick the CUDA kernel is held to.
+are no-ops.  The CPU tests hold them against ``repro``'s oracles and
+Pallas kernels; on the card they are what the CUDA kernels are held to.
 """
 
 from __future__ import annotations
@@ -31,6 +31,25 @@ def csr_aggregate_ref(
         for c0 in range(0, s, chunk)
     ]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def csr_round_ref(
+    nbr: torch.Tensor,  # (M, D) int32 neighbor ids
+    wgt: torch.Tensor,  # (M, D) float weights (0 = pad)
+    F: torch.Tensor,  # (N, S) features/labels
+    base: torch.Tensor,  # (M, S) seed/base panel for the fused epilogue
+    c: float,
+) -> torch.Tensor:
+    """Fused round ``c·base + Σ_k wgt[·,k] · F[nbr[·,k]]`` in ``F.dtype``.
+
+    Accumulated in f32; unlike :func:`csr_round_residual_ref` the result
+    takes the gather panel's dtype (a bf16 ``F`` gives a bf16 round).  As
+    in ``repro``'s oracle, the sum is rounded to ``F.dtype`` before
+    ``c·base`` is added (a second rounding for bf16; exact for f32).  The
+    CUDA kernel, like the Pallas one, rounds once.
+    """
+    acc = csr_aggregate_ref(nbr, wgt, F).to(F.dtype).float()
+    return (c * base.float() + acc).to(F.dtype)
 
 
 def csr_round_residual_ref(

@@ -21,6 +21,15 @@ from repro_torch.scenarios.base import (
     register_scenario,
     scaled_sizes,
 )
+from repro_torch.scenarios.evaluate import (
+    RecoveryProblem,
+    backend_solver_fn,
+    default_lp_config,
+    make_recovery_problem,
+    recovery_auc,
+    scenario_cross_validate,
+    solve_recovery,
+)
 from repro_torch.scenarios.generators import (
     KPartiteSpec,
     PlantedKPartite,
@@ -36,17 +45,24 @@ __all__ = [
     "KPartiteSpec",
     "PlantedKPartite",
     "QueryTrace",
+    "RecoveryProblem",
     "ScenarioBundle",
     "ScenarioInfo",
     "TimedDelta",
     "available_scenarios",
+    "backend_solver_fn",
     "cache_dir",
     "cache_path",
+    "default_lp_config",
     "generate",
     "get_scenario",
     "list_rows",
+    "make_recovery_problem",
     "planted_kpartite",
+    "recovery_auc",
     "register_scenario",
     "scaled_sizes",
+    "scenario_cross_validate",
     "sizes_for_edges",
+    "solve_recovery",
 ]

@@ -72,6 +72,12 @@ def test_no_module_imports_jax_or_repro():
     ``repro`` blocked.  A subprocess: this worker has imported both."""
     modules = _port_modules()
     assert len(modules) > 20
+    assert {
+        "repro_torch.data.drugnet",
+        "repro_torch.eval.cv",
+        "repro_torch.eval.metrics",
+        "repro_torch.scenarios.evaluate",
+    } <= set(modules)
     code = "\n".join(
         [
             "import importlib, sys",

@@ -15,12 +15,16 @@ import torch
 
 from repro.kernels.lp_blockspmm import lp_round, lp_round_ref as jax_lp_round_ref
 from repro.kernels.segment_reduce import (
+    csr_round,
+    csr_round_ref as jax_csr_round_ref,
     csr_round_residual,
     csr_round_residual_ref as jax_csr_ref,
 )
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import SOURCES, launch_counts
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
+    csr_round_op,
+    csr_round_ref,
     csr_round_residual_op,
     csr_round_residual_ref,
     rows_per_block,
@@ -129,6 +133,69 @@ class TestCSRRoundResidual:
         assert rpb == 1 or rpb * width <= 4096
 
 
+class TestCSRRound:
+    """B3: plain version vs the Pallas kernel (interpret) and the oracle."""
+
+    @pytest.mark.parametrize(
+        "m,n,d,s",
+        [
+            (128, 128, 8, 32),  # aligned
+            (200, 150, 11, 37),  # padded tails on every axis
+            (64, 300, 33, 16),  # degree > one bd slab
+            (5, 90, 130, 140),  # wider than one staged slab, ragged S
+        ],
+    )
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_sweep_against_jax(self, m, n, d, s, dtype):
+        nbr, wgt, F, base, _ = _csr_inputs(m, n, d, s, seed=m * 7 + n + d + s)
+        jw, tw = _both(wgt, dtype)
+        jF, tF = _both(F, dtype)
+        jb, tb = _both(base, "f32")
+        jn, tn = jnp.asarray(nbr), torch.from_numpy(nbr)
+
+        got = csr_round_ref(tn, tw, tF, tb, 0.25)
+        assert got.dtype == DTYPES[dtype][1] and got.shape == (m, s)
+        kern = csr_round(jn, jw, jF, jb, c=0.25, bn=64, bs=32, bd=8, interpret=True)
+        want = jax_csr_round_ref(jn, jw, jF, jb, 0.25)
+        assert want.dtype == DTYPES[dtype][0]
+        for ref_out in (kern, want):
+            np.testing.assert_allclose(_np(got), _np(ref_out)[:m, :s], **_tol(dtype))
+
+    def test_bf16_rounds_like_the_oracle(self):
+        """The reference's oracle rounds the sum to bf16 before adding
+        ``c·base``; the plain version does the same, bit for bit."""
+        nbr, wgt, F, base, _ = _csr_inputs(96, 120, 24, 40, seed=21)
+        jw, tw = _both(wgt, "bf16")
+        jF, tF = _both(F, "bf16")
+        got = csr_round_ref(torch.from_numpy(nbr), tw, tF, torch.from_numpy(base), 0.25)
+        want = jax_csr_round_ref(jnp.asarray(nbr), jw, jF, jnp.asarray(base), 0.25)
+        np.testing.assert_array_equal(_np(got), _np(want))
+
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_op_on_cpu_is_the_plain_version(self, dtype):
+        nbr, wgt, F, base, _ = _csr_inputs(40, 60, 16, 24, seed=4)
+        _, tw = _both(wgt, dtype)
+        _, tF = _both(F, dtype)
+        tn, tb = torch.from_numpy(nbr), torch.from_numpy(base)
+        before = launch_counts()
+        want = csr_round_ref(tn, tw, tF, tb, 0.3)
+        buf = torch.full((40, 24), float("nan"), dtype=tF.dtype)
+        got = csr_round_op(tn, tw, tF, tb, c=0.3, out=buf)
+        assert got is buf and torch.equal(got, want)
+        assert torch.equal(csr_round_op(tn, tw, tF, tb, c=0.3), want)
+        assert launch_counts() == before  # the plain version is no launch
+
+    def test_round_residual_and_round_agree_in_f32(self):
+        nbr, wgt, F, base, prev = _csr_inputs(70, 80, 12, 30, seed=6)
+        args = [torch.from_numpy(a) for a in (nbr, wgt, F, base)]
+        out, _ = csr_round_residual_ref(*args, torch.from_numpy(prev), 0.4)
+        assert torch.equal(csr_round_ref(*args, 0.4), out)
+
+    def test_is_built_and_counted_with_the_others(self):
+        assert SOURCES == ("csr_round_residual.cu", "csr_round.cu", "lp_round.cu")
+        assert set(launch_counts()) == {"csr_round_residual", "csr_round", "lp_round"}
+
+
 class TestLPRound:
     """B2: plain version vs the Pallas kernel (interpret) and the oracle."""
 
@@ -170,6 +237,13 @@ class TestWrappersNeverFallBack:
             csr_round_residual_op(
                 meta(4, 8, dt=torch.int32), meta(4, 8), meta(10, 3), meta(4, 3),
                 meta(4, 3), c=0.25,
+            )
+
+    def test_csr_round_raises_off_cpu(self):
+        meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            csr_round_op(
+                meta(4, 8, dt=torch.int32), meta(4, 8), meta(10, 3), meta(4, 3), c=0.25
             )
 
     def test_lp_round_raises_off_cpu(self):
