@@ -28,12 +28,27 @@ Phases (each raises on failure, so the script exits non-zero):
    drug–target edges hidden, 32 seed rows) on ``sparse`` fused, ``sparse``
    legacy and ``dense``, then the all-sources solve on ``sparse`` fused
    and ``dense``, which must agree (max|ΔF| ≤ 5e-3, equal rounds);
-8. the kernel list: launches of each kernel on its path (phases 4-5 for
-   ``csr_round_residual`` and ``lp_round``, phase 6 for ``csr_round``;
-   all must be non-zero), with the phase 3 measurements;
-9. the result line.
+8. the model slice's kernels vs their plain versions at their paths'
+   shapes, with timings, bounds and library yardsticks: ``csr_aggregate``
+   at both GCN layers on ``ogb_products`` (M = N = 2,449,029, D = 89,
+   S = 100 and 16; f32, and bf16 at S = 100), ``embedding_bag`` at the
+   deep and wide lookups of Wide & Deep ``FULL`` at ``serve_bulk``;
+9. GCN (``gcn-cora`` at ``ogb_products`` widths) full-graph inference:
+   graph build on host and device, then the forward on the kernel path
+   (two ``csr_aggregate`` launches) and on the plain path, which must
+   agree at f32 ``rtol=2e-4, atol=5e-4``;
+10. Wide & Deep ``FULL`` serving: ``serve_p99``, ``serve_bulk`` and
+    ``retrieval_cand`` on the kernel path (two ``embedding_bag`` launches
+    per serve call, one per retrieval call) and on the plain path, at the
+    same tolerance; peak device memory with the 5.12 GB table resident;
+11. the kernel list: launches of each kernel on its path (phases 4-5 for
+    ``csr_round_residual`` and ``lp_round``, phase 6 for ``csr_round``,
+    phase 9 for ``csr_aggregate``, phase 10 for ``embedding_bag``; all
+    must be non-zero), with the phase 3 and phase 8 measurements;
+12. the result line.
 
-Phases 4, 6 and 7 each also trace one solve with ``torch.profiler``.
+Phases 4, 6, 7, 9 and 10 each also trace one call with ``torch.profiler``
+(after one untraced warm-up call).
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -111,25 +126,55 @@ def bound(ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def trace_solve(torch, label: str, fn) -> None:
-    """Run ``fn`` once under ``torch.profiler``; print the wall time, the
-    device's busy time (the union of its kernel and copy intervals) and
-    the eight device entries that took the most time.
+def wall_s(torch, fn, *, iters: int) -> list:
+    """Host-clock seconds of each of ``iters`` calls, each ended by a
+    synchronize (what a caller waits for)."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
 
-    Only device-side events count: a CPU op's ``self_device_time_total``
-    repeats the time of the kernels it launched, so summing both would
-    count that time twice.
+
+def trace_solve(torch, label: str, fn) -> None:
+    """Run ``fn`` twice under ``torch.profiler``, recording the second
+    run; print its wall time, the device's busy time (the union of its
+    kernel and copy intervals) and the eight device entries that took the
+    most time.
+
+    The first run is the profiler's warm-up step: the device events of
+    the first milliseconds after the profiler starts can be lost (a
+    call's first kernels and copies were missing from one-step traces).
+    Only device-side kernels and copies count: a CPU op's
+    ``self_device_time_total`` repeats the time of the kernels it
+    launched, so summing both would count that time twice.
     """
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     log(f"== profile: {label} under torch.profiler")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    recorded = []
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=1, active=1),
+        on_trace_ready=lambda p: recorded.append(list(p.events())),
+    ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         t_p = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+        prof.step()
+    if not recorded:
+        fail(f"profile of {label}: the profiler recorded no step")
+    # the step's own annotation spans the whole step on the device timeline
+    events = [e for e in recorded[0] if e.device_type != DeviceType.CPU
+              and not e.name.startswith("ProfilerStep")]
     busy_us, end = 0.0, None
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
         if end is None or start > end:
@@ -198,6 +243,13 @@ def main() -> int:
         rows_per_block,
     )
     from repro_torch.scenarios import generate, make_recovery_problem, solve_recovery
+    from repro_torch.configs import cells, gcn_cora, wide_deep
+    from repro_torch.data.graphs import planted_partition_graph
+    from repro_torch.data.recsys import CTRDataConfig, sample_ctr_batch
+    from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
+    from repro_torch.kernels.segment_reduce import csr_aggregate_op, csr_aggregate_ref
+    from repro_torch.models.gnn import GCN, gcn_adjacency
+    from repro_torch.models.recsys import WideDeep, make_retrieval_scorer, make_serve
 
     t_script = time.perf_counter()
     # ------------------------------------------------------------ 1. device
@@ -584,9 +636,239 @@ def main() -> int:
     dhlp1_engine.prepare(net)
     trace_solve(torch, "DHLP-1 all-sources sparse fused solve", lambda: dhlp1_engine.run(net))
 
-    # ------------------------------------------------ 8. the kernel list
-    log("== phase 8: kernels")
+    # --------------------------- 8. model-slice kernels vs plain versions
+    log("== phase 8: csr_aggregate and embedding_bag vs plain versions")
+    torch.cuda.empty_cache()
+    gcfg = cells.gcn_at_shape(gcn_cora.FULL, "ogb_products")
+    gsh = cells.GNN_SHAPES["ogb_products"]
+    t0 = time.perf_counter()
+    data = planted_partition_graph(gsh["n_nodes"], gsh["n_edges"], gsh["n_classes"],
+                                   gsh["d_feat"], seed=0, device=dev)
+    t_gen = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbr, wgt = gcn_adjacency(data.edges, device=dev)
+    feats = torch.from_numpy(data.feats).to(dev)
+    torch.cuda.synchronize()
+    t_adj = time.perf_counter() - t0
+    gn, gd = (int(x) for x in nbr.shape)
+    g_nnz = data.edges.num_edges
+    log(f"  ogb_products planted graph: {gn} nodes, {gsh['n_edges']} drawn edges, "
+        f"{g_nnz} after symmetrizing and self-loops; generated in {t_gen:.1f} s "
+        "(numpy draws on the host, deduplication on the card)")
+    log(f"  GCN operator D^-1/2 A D^-1/2 as padded CSR ({gn} x {gd}, {gn * gd} slots, "
+        f"{1 - g_nnz / (gn * gd):.3f} padding), built on the card in {t_adj:.2f} s "
+        "(upload, normalise, sort, pack)")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h16 = torch.rand((gn, gcfg.d_hidden), generator=gen, device=dev)
+
+    def b4_bound(s_):
+        return bound(2.0 * g_nnz * s_, 4.0 * gn * s_ * 2 + 8.0 * gn * gd)
+
+    b4 = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound_ms": 0.0}
+    keep = wgt != 0
+    a_csr = torch.sparse_coo_tensor(
+        torch.stack([torch.nonzero(keep)[:, 0], nbr[keep].long()]), wgt[keep], (gn, gn),
+        check_invariants=True,
+    ).coalesce().to_sparse_csr()
+    del keep
+    for label, F_ in (("layer 1", feats), ("layer 2", h16)):
+        s_ = int(F_.shape[1])
+        out_k = csr_aggregate_op(nbr, wgt, F_)
+        torch.cuda.synchronize()
+        out_p = csr_aggregate_ref(nbr, wgt, F_)
+        tag = f"csr_aggregate f32 {label} (M={gn}, D={gd}, S={s_})"
+        b4["err"] = max(b4["err"], check_close(np, tag, out_k, out_p, F32_TOL))
+        if not torch.equal(out_k, csr_aggregate_op(nbr, wgt, F_)):
+            fail(f"{tag}: two launches gave different bytes")
+        check_close(np, tag + " vs torch.sparse.mm(CSR)", out_k, torch.sparse.mm(a_csr, F_),
+                    F32_TOL)
+        del out_k, out_p
+        ms = cuda_ms(torch, lambda: csr_aggregate_op(nbr, wgt, F_))
+        plain_ms = cuda_ms(torch, lambda: csr_aggregate_ref(nbr, wgt, F_), warmup=1, iters=2)
+        lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(a_csr, F_))
+        bms, by = b4_bound(s_)
+        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse.mm(CSR) "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("lib_ms", lib_ms),
+                         ("bound_ms", bms)):
+            b4[key] += val
+    b4["by"] = by
+    fq, wq = feats.to(torch.bfloat16), wgt.to(torch.bfloat16)
+    out_k = csr_aggregate_op(nbr, wq, fq)
+    torch.cuda.synchronize()
+    check_close(np, f"csr_aggregate bf16 layer 1 (S={gcfg.d_feat})", out_k,
+                csr_aggregate_ref(nbr, wq, fq), BF16_TOL)
+    log(f"    kernel bf16 {cuda_ms(torch, lambda: csr_aggregate_op(nbr, wq, fq)):.4f} ms")
+    del fq, wq, out_k, h16, a_csr
+    log(f"  csr_aggregate per GCN forward (both layers): kernel {b4['ms']:.4f} ms, plain "
+        f"{b4['plain_ms']:.4f} ms, torch.sparse.mm(CSR) {b4['lib_ms']:.4f} ms, "
+        f"bound {b4['bound_ms']:.4f} ms ({b4['by']})")
+
+    # the Wide & Deep model (its 5.12 GB table made on the card) and inputs
+    torch.cuda.empty_cache()
+    wcfg = wide_deep.FULL
+    dcfg = CTRDataConfig(wcfg.n_sparse, wcfg.n_dense, wcfg.vocab_per_field, seed=0)
+    t0 = time.perf_counter()
+    batches = {name: sample_ctr_batch(dcfg, cells.RECSYS_SHAPES[name]["batch"])
+               for name in ("serve_p99", "serve_bulk", "retrieval_cand")}
+    sizes = ", ".join(f"{k} {len(v['labels'])}" for k, v in batches.items())
+    log(f"  CTR batches ({sizes}) sampled in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    wd = WideDeep(wcfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    with torch.no_grad():  # the reference's zero inits, made random so every term counts
+        wgen = torch.Generator(device=dev).manual_seed(1)
+        wd.wide_table.normal_(0.0, 0.02, generator=wgen)
+        wd.wide_dense.normal_(0.0, 0.1, generator=wgen)
+        wd.bias.fill_(-0.7)
+        for b in wd.mlp_b:
+            b.normal_(0.0, 0.02, generator=wgen)
+    torch.cuda.synchronize()
+    table_bytes = wd.table.numel() * wd.table.element_size()
+    log(f"  wide-deep FULL: {wcfg.param_count()} parameters, table {tuple(wd.table.shape)} "
+        f"({table_bytes / 1e9:.2f} GB), made on the card in {time.perf_counter() - t0:.2f} s")
+    bulk = batches["serve_bulk"]
+    rows = wd.rows(bulk["sparse"])
+    bb = int(rows.shape[0])
+    deep_idx = rows.reshape(-1, 1)
+    deep_w = torch.ones(deep_idx.shape, device=dev)
+    wide_tab = wd.wide_table[:, None]
+    wide_w = torch.ones(rows.shape, device=dev)
+    b5 = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound_ms": 0.0,
+          "ops": 0.0, "bytes": 0.0}
+    for label, tab, idx, w in (("deep", wd.table, deep_idx, deep_w),
+                               ("wide", wide_tab, rows, wide_w)):
+        b_, k_ = (int(x) for x in idx.shape)
+        d_ = int(tab.shape[1])
+        tag = f"embedding_bag f32 {label} serve_bulk (V={tab.shape[0]}, D={d_}, B={b_}, K={k_})"
+        out_k = embedding_bag_op(tab, idx, w)
+        torch.cuda.synchronize()
+        out_p = embedding_bag_ref(tab, idx, w)
+        b5["err"] = max(b5["err"], check_close(np, tag, out_k, out_p, F32_TOL))
+        if label == "deep" and not torch.equal(out_k, tab[idx[:, 0].long()]):
+            fail(f"{tag}: one slot of weight 1.0 is not an exact gather")
+        if not torch.equal(out_k, embedding_bag_op(tab, idx, w)):
+            fail(f"{tag}: two launches gave different bytes")
+        lib = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+            idx, tab, mode="sum", per_sample_weights=w)
+        check_close(np, tag + " vs F.embedding_bag", out_k, lib(), F32_TOL)
+        del out_k, out_p
+        ms = cuda_ms(torch, lambda: embedding_bag_op(tab, idx, w))
+        plain_ms = cuda_ms(torch, lambda: embedding_bag_ref(tab, idx, w))
+        lib_ms = cuda_ms(torch, lib)
+        n_rows = int(torch.unique(idx).numel())
+        ops, nbytes = 2.0 * b_ * k_ * d_, 8.0 * b_ * k_ + 4.0 * n_rows * d_ + 4.0 * b_ * d_
+        bms, by = bound(ops, nbytes)
+        log(f"    {n_rows} distinct rows; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.embedding_bag {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("lib_ms", lib_ms),
+                         ("ops", ops), ("bytes", nbytes)):
+            b5[key] += val
+    b5["bound_ms"], b5["by"] = bound(b5["ops"], b5["bytes"])
+    log(f"  embedding_bag per serve_bulk call (deep + wide): kernel {b5['ms']:.4f} ms, plain "
+        f"{b5['plain_ms']:.4f} ms, F.embedding_bag {b5['lib_ms']:.4f} ms, "
+        f"bound {b5['bound_ms']:.4f} ms ({b5['by']})")
+    del deep_idx, deep_w, wide_w, rows
+
+    # ------------------------------------ 9. GCN full-graph inference
+    log("== phase 9: GCN full-graph inference, gcn-cora at ogb_products widths")
+    gcn = GCN(gcfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = gcn(feats, nbr, wgt)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    gcn_counts = launch_counts()
+    log(f"  kernel path: logits {tuple(logits.shape)} in {t_first:.4f} s wall; "
+        f"launches {gcn_counts}")
+    if gcn_counts["csr_aggregate"] != gcfg.n_layers or sum(gcn_counts.values()) != gcfg.n_layers:
+        fail(f"GCN forward launched {gcn_counts}, expected {gcfg.n_layers} csr_aggregate")
+    if logits.shape != (gn, gcfg.n_classes) or not torch.isfinite(logits).all():
+        fail(f"GCN logits: shape {tuple(logits.shape)} or non-finite values")
+    walls = wall_s(torch, lambda: gcn(feats, nbr, wgt), iters=5)
+    gcn.use_kernel = False
+    plain_logits = gcn(feats, nbr, wgt)
+    plain_walls = wall_s(torch, lambda: gcn(feats, nbr, wgt), iters=2)
+    gcn.use_kernel = True
+    check_close(np, "GCN logits, kernel path vs plain path", logits, plain_logits, F32_TOL)
+    log(f"  forward wall: kernel path {', '.join(f'{t * 1e3:.2f}' for t in walls)} ms; "
+        f"plain path {', '.join(f'{t * 1e3:.2f}' for t in plain_walls)} ms")
+    log(f"  predicted-class agreement with the planted labels: "
+        f"{float((logits.argmax(1).cpu().numpy() == data.labels).mean()):.4f} "
+        "(random weights: near chance, 1/47)")
+    del logits, plain_logits
+    trace_solve(torch, "GCN forward", lambda: gcn(feats, nbr, wgt))
+    del gcn, nbr, wgt, feats, data
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------- 10. Wide & Deep serving
+    log("== phase 10: Wide & Deep FULL serving: serve_p99, serve_bulk, retrieval_cand")
+    serve = make_serve(wd)
+    score = make_retrieval_scorer(wd)
+    n_cand = cells.pad512(cells.RECSYS_SHAPES["retrieval_cand"]["n_candidates"])
+    cand = torch.rand((n_cand, wcfg.mlp_dims[-1]), generator=gen, device=dev)
+    q = batches["retrieval_cand"]
+    calls = {
+        "serve_p99": lambda: serve(batches["serve_p99"]["sparse"], batches["serve_p99"]["dense"]),
+        "serve_bulk": lambda: serve(bulk["sparse"], bulk["dense"]),
+        "retrieval_cand": lambda: score(q["sparse"], q["dense"], cand),
+    }
+    want_launches = {"serve_p99": 2, "serve_bulk": 2, "retrieval_cand": 1}
+    reset_launch_counts()
+    outs = {}
+    for name, fn in calls.items():
+        before = launch_counts()["embedding_bag"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()["embedding_bag"] - before
+        log(f"  {name}: output {tuple(outs[name].shape)}, first call {time.perf_counter() - t0:.4f} s, "
+            f"{got} embedding_bag launches")
+        if got != want_launches[name]:
+            fail(f"{name}: {got} embedding_bag launches, expected {want_launches[name]}")
+    wd_counts = launch_counts()
+    if sum(wd_counts.values()) != wd_counts["embedding_bag"]:
+        fail(f"Wide & Deep launched other kernels: {wd_counts}")
+    expect = {"serve_p99": (512,), "serve_bulk": (bb,), "retrieval_cand": (n_cand,)}
+    for name, fn in calls.items():
+        out = outs[name]
+        if tuple(out.shape) != expect[name] or not torch.isfinite(out).all():
+            fail(f"{name}: shape {tuple(out.shape)} or non-finite values")
+        walls = wall_s(torch, fn, iters=20 if name != "serve_bulk" else 5)
+        wd.use_kernel = False
+        plain = fn()
+        plain_walls = wall_s(torch, fn, iters=3)
+        wd.use_kernel = True
+        check_close(np, f"{name} kernel path vs plain path", out, plain, F32_TOL)
+        walls_ms = sorted(t * 1e3 for t in walls)
+        log(f"    wall per call: kernel path median {walls_ms[len(walls_ms) // 2]:.3f} ms, "
+            f"min {walls_ms[0]:.3f}, max {walls_ms[-1]:.3f} ({len(walls)} calls); plain path "
+            f"{', '.join(f'{t * 1e3:.3f}' for t in plain_walls)} ms")
+    p = outs["serve_bulk"]
+    log(f"  serve_bulk probabilities: mean {float(p.mean()):.4f}, min {float(p.min()):.4f}, "
+        f"max {float(p.max()):.4f}")
+    if not bool(((p > 0) & (p < 1)).all()):
+        fail("serve_bulk: probabilities outside (0, 1)")
+    peak = torch.cuda.max_memory_allocated() - mem0
+    log(f"  device memory: max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, "
+        f"{peak / 1e9:.3f} GB of it since the model was made (table {table_bytes / 1e9:.3f} GB "
+        "resident)")
+    if peak < table_bytes:
+        fail(f"peak device memory {peak} below the table's {table_bytes} bytes")
+    trace_solve(torch, "Wide & Deep serve_bulk call", calls["serve_bulk"])
+    del wd, cand, outs, p, wide_tab
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 11. the kernel list
+    log("== phase 11: kernels")
     counts["csr_round"] = legacy_counts["csr_round"]
+    counts["csr_aggregate"] = gcn_counts["csr_aggregate"]
+    counts["embedding_bag"] = wd_counts["embedding_bag"]
     for name, cnt in counts.items():
         if cnt <= 0:
             fail(f"kernel {name} was not launched on its path")
@@ -630,11 +912,37 @@ def main() -> int:
             "bound_by": b2_by,
             "library_ms": b2_lib_ms,
         },
+        {
+            "name": "csr_aggregate",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/csr_aggregate.cu",
+            "replaces": "src/repro/kernels/segment_reduce/kernel.py:147",
+            "launches": counts["csr_aggregate"],
+            "max_abs_err": b4["err"],
+            "ms": b4["ms"],
+            "plain_ms": b4["plain_ms"],
+            "bound_ms": b4["bound_ms"],
+            "bound_by": b4["by"],
+            "library_ms": b4["lib_ms"],
+        },
+        {
+            "name": "embedding_bag",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag/kernel.py:57",
+            "launches": counts["embedding_bag"],
+            "max_abs_err": b5["err"],
+            "ms": b5["ms"],
+            "plain_ms": b5["plain_ms"],
+            "bound_ms": b5["bound_ms"],
+            "bound_by": b5["by"],
+            "library_ms": b5["lib_ms"],
+        },
     ]
     log(f"  total {time.perf_counter() - t_script:.1f} s")
     print(smi_name_and_limit(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # ------------------------------------------------------ 9. the result
+    # ----------------------------------------------------- 12. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

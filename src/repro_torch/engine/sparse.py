@@ -48,6 +48,7 @@ from repro_torch.kernels.segment_reduce import (
     csr_round_ref,
     csr_round_residual_op,
 )
+from repro_torch.kernels.segment_reduce.ref import _aggregate_f32
 
 _STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -83,7 +84,7 @@ def _device_buckets(bcsr, device):
 
 def _bucket_agg(buckets, inv_perm, F):
     """``A @ F`` via per-bucket gather + einsum, back in node order."""
-    parts = [csr_aggregate_ref(nbr, wgt, F).to(F.dtype) for _, nbr, wgt in buckets]
+    parts = [csr_aggregate_ref(nbr, wgt, F) for _, nbr, wgt in buckets]
     return torch.cat(parts, dim=0)[inv_perm]
 
 
@@ -278,7 +279,7 @@ def _plan_round(buckets, F, base, *, c, use_kernel, storage):
     """
     Fq = F.to(_STORAGE[storage]) if storage != "f32" else F
     if not use_kernel:
-        parts = [csr_aggregate_ref(nbr, wgt, Fq) for nbr, wgt in buckets]
+        parts = [_aggregate_f32(nbr, wgt, Fq) for nbr, wgt in buckets]
         Fn = c * base.float() + torch.cat(parts, dim=0)
         delta = (Fn - F.float()).abs().amax(dim=0)
         return Fn, delta

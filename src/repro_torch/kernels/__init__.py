@@ -6,6 +6,8 @@ kernel                 replaces (Pallas TPU kernel)                 source
 csr_round_residual     repro/kernels/segment_reduce/kernel.py       csrc/csr_round_residual.cu
 csr_round              repro/kernels/segment_reduce/kernel.py       csrc/csr_round.cu
 lp_round               repro/kernels/lp_blockspmm/kernel.py         csrc/lp_round.cu
+csr_aggregate          repro/kernels/segment_reduce/kernel.py       csrc/csr_aggregate.cu
+embedding_bag          repro/kernels/embedding_bag/kernel.py        csrc/embedding_bag.cu
 =====================  ==========================================  ====================
 
 Each ``*_op`` wrapper takes the plain version for CPU tensors and launches
@@ -13,9 +15,12 @@ its kernel for CUDA tensors (or raises); each kernel launch adds one to
 the wrapper's :class:`~repro_torch.kernels.common.LaunchCounter`.
 """
 
-from repro_torch.kernels import lp_blockspmm, segment_reduce
+from repro_torch.kernels import embedding_bag, lp_blockspmm, segment_reduce
+from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
+    csr_aggregate_op,
+    csr_aggregate_ref,
     csr_round_op,
     csr_round_ref,
     csr_round_residual_op,
@@ -29,6 +34,8 @@ COUNTERS = {
         segment_reduce.LAUNCHES,
         segment_reduce.ROUND_LAUNCHES,
         lp_blockspmm.LAUNCHES,
+        segment_reduce.AGGREGATE_LAUNCHES,
+        embedding_bag.LAUNCHES,
     )
 }
 #: every kernel's CUDA source under ``csrc/``
@@ -36,6 +43,8 @@ SOURCES = (
     segment_reduce.ops.SOURCE,
     segment_reduce.ops.ROUND_SOURCE,
     lp_blockspmm.ops.SOURCE,
+    segment_reduce.ops.AGGREGATE_SOURCE,
+    embedding_bag.ops.SOURCE,
 )
 
 
@@ -51,10 +60,14 @@ def reset_launch_counts() -> None:
 __all__ = [
     "COUNTERS",
     "SOURCES",
+    "csr_aggregate_op",
+    "csr_aggregate_ref",
     "csr_round_op",
     "csr_round_ref",
     "csr_round_residual_op",
     "csr_round_residual_ref",
+    "embedding_bag_op",
+    "embedding_bag_ref",
     "launch_counts",
     "lp_round_op",
     "lp_round_ref",

@@ -1,9 +1,9 @@
-"""Public wrappers for the fused blocked-CSR rounds.
+"""Public wrappers for the padded-CSR aggregate and the fused rounds.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the hand-written kernel (``csrc/csr_round_residual.cu``,
-``csrc/csr_round.cu``) or raises — there is no fallback from the card to
-the plain version.
+the hand-written kernel (``csrc/csr_aggregate.cu``,
+``csrc/csr_round_residual.cu``, ``csrc/csr_round.cu``) or raises — there
+is no fallback from the card to the plain version.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from repro_torch.kernels.common import (
     stream_handle,
 )
 from repro_torch.kernels.segment_reduce.ref import (
+    csr_aggregate_ref,
     csr_round_ref,
     csr_round_residual_ref,
 )
@@ -32,6 +33,8 @@ SOURCE = "csr_round_residual.cu"
 LAUNCHES = LaunchCounter("csr_round_residual")
 ROUND_SOURCE = "csr_round.cu"
 ROUND_LAUNCHES = LaunchCounter("csr_round")
+AGGREGATE_SOURCE = "csr_aggregate.cu"
+AGGREGATE_LAUNCHES = LaunchCounter("csr_aggregate")
 
 # A block walks rows_per_block rows × width slots per column; aim for
 # about this many slots per block so narrow buckets still get long loops
@@ -59,8 +62,8 @@ def _launcher(source: str, symbol: str, n_pointers: int):
     return fn
 
 
-def _check_bucket(name, nbr, wgt, F, base):
-    """Operand checks shared by both wrappers; returns ``(m, d, s)``."""
+def _check_bucket(name, nbr, wgt, F, base=None):
+    """Operand checks shared by the wrappers; returns ``(m, d, s)``."""
     dev = F.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -69,10 +72,61 @@ def _check_bucket(name, nbr, wgt, F, base):
     check_cuda_operand("nbr", nbr, device=dev, dtypes=(torch.int32,), shape=(m, d))
     check_cuda_operand("wgt", wgt, device=dev, dtypes=(F.dtype,), shape=(m, d))
     check_cuda_operand("F", F, device=dev, dtypes=_STORAGE, shape=(n, s))
-    check_cuda_operand("base", base, device=dev, dtypes=(torch.float32,), shape=(m, s))
+    if base is not None:
+        check_cuda_operand("base", base, device=dev, dtypes=(torch.float32,), shape=(m, s))
     if max(m * d, n * s, m * s) > MAX_INT32:
         raise ValueError(f"{name}: operand larger than int32 indexing")
     return m, d, s
+
+
+def csr_aggregate_op(
+    nbr: torch.Tensor,
+    wgt: torch.Tensor,
+    F: torch.Tensor,
+    *,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``out[r] = Σ_k wgt[r, k] · F[nbr[r, k]]`` in ``F.dtype`` (f32 sums).
+
+    The GCN's aggregate over a padded CSR: ``nbr`` (M, D) int32, ``wgt``
+    (M, D) and ``F`` (N, S) of one dtype.  Unlike ``repro``'s wrapper
+    there is no node-count gate: the kernel gathers F rows from device
+    memory, so any N runs on it.  ``out``, when given, is an ``(M, S)``
+    buffer of ``F``'s dtype the result is written into.
+    """
+    if on_cpu(nbr, wgt, F):
+        res = csr_aggregate_ref(nbr, wgt, F)
+        if out is not None:
+            out.copy_(res)
+            res = out
+        return res
+    m, d, s = _check_bucket("csr_aggregate", nbr, wgt, F)
+    dev = F.device
+    if out is None:
+        out = torch.empty((m, s), dtype=F.dtype, device=dev)
+    else:
+        check_cuda_operand("out", out, device=dev, dtypes=(F.dtype,), shape=(m, s))
+    if m == 0 or s == 0:
+        return out
+    fn = load_library(AGGREGATE_SOURCE).cdll.csr_aggregate_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    err = fn(
+        nbr.data_ptr(),
+        wgt.data_ptr(),
+        F.data_ptr(),
+        out.data_ptr(),
+        m,
+        d,
+        s,
+        int(F.dtype == torch.bfloat16),
+        dev.index,
+        stream_handle(dev),
+    )
+    check_launch("csr_aggregate", err)
+    AGGREGATE_LAUNCHES.add()
+    return out
 
 
 def csr_round_op(

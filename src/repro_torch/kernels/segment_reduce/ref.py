@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the padded-CSR fused rounds.
+"""Plain PyTorch versions of the padded-CSR aggregate and fused rounds.
 
 ``out[v] = c·base[v] + Σ_k wgt[v, k] · F[nbr[v, k]]`` — zero-weight pads
 are no-ops.  The CPU tests hold them against ``repro``'s oracles and
@@ -10,9 +10,44 @@ from __future__ import annotations
 import torch
 
 # ``F[nbr]`` materializes an (M, D, S) panel; past this many elements the
-# gather runs in column chunks.  Label columns are independent, so a chunk
-# changes only the rounding order of the library's reduction.
+# gather runs in chunks: column chunks while the (M, D) index table itself
+# fits, else row chunks of full width.  Rows and label columns are
+# independent, so a chunk changes only the rounding order of the library's
+# reduction.
 GATHER_BUDGET = 1 << 27
+
+
+def _aggregate_f32(
+    nbr: torch.Tensor,  # (M, D) int32 neighbor ids
+    wgt: torch.Tensor,  # (M, D) float weights (0 = pad)
+    F: torch.Tensor,  # (N, S) features/labels
+) -> torch.Tensor:
+    """``Σ_k wgt[·,k] · F[nbr[·,k]]`` accumulated and returned in f32 (the
+    sum the fused rounds add to ``c·base`` before their one rounding)."""
+    m, d = nbr.shape
+    s = F.shape[1]
+    idx = nbr.long()
+    w = wgt.float()
+    if m * d <= GATHER_BUDGET:
+        rows, cols = m, max(1, min(s, GATHER_BUDGET // max(1, m * d)))
+    else:
+        cols = max(1, min(s, GATHER_BUDGET // max(1, d)))
+        rows = max(1, GATHER_BUDGET // max(1, d * cols))
+    parts = [
+        torch.cat(
+            [
+                torch.einsum(
+                    "nd,nds->ns",
+                    w[r0 : r0 + rows],
+                    F[:, c0 : c0 + cols][idx[r0 : r0 + rows]].float(),
+                )
+                for c0 in range(0, s, cols)
+            ],
+            dim=1,
+        )
+        for r0 in range(0, m, rows)
+    ]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
 def csr_aggregate_ref(
@@ -20,17 +55,10 @@ def csr_aggregate_ref(
     wgt: torch.Tensor,  # (M, D) float weights (0 = pad)
     F: torch.Tensor,  # (N, S) features/labels
 ) -> torch.Tensor:
-    """``Σ_k wgt[·,k] · F[nbr[·,k]]`` accumulated in f32, returned f32."""
-    m, d = nbr.shape
-    s = F.shape[1]
-    idx = nbr.long()
-    w = wgt.float()
-    chunk = max(1, min(s, GATHER_BUDGET // max(1, m * d)))
-    parts = [
-        torch.einsum("nd,nds->ns", w, F[:, c0 : c0 + chunk][idx].float())
-        for c0 in range(0, s, chunk)
-    ]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    """``Σ_k wgt[·,k] · F[nbr[·,k]]`` accumulated in f32, returned in
+    ``F.dtype`` (as ``repro``'s oracle of the same name): the plain
+    version of the ``csr_aggregate`` kernel."""
+    return _aggregate_f32(nbr, wgt, F).to(F.dtype)
 
 
 def csr_round_ref(
@@ -48,7 +76,7 @@ def csr_round_ref(
     ``c·base`` is added (a second rounding for bf16; exact for f32).  The
     CUDA kernel, like the Pallas one, rounds once.
     """
-    acc = csr_aggregate_ref(nbr, wgt, F).to(F.dtype).float()
+    acc = csr_aggregate_ref(nbr, wgt, F).float()
     return (c * base.float() + acc).to(F.dtype)
 
 
@@ -66,6 +94,6 @@ def csr_round_residual_ref(
     shaped ``(1, S)`` — the max over this bucket's rows of ``|out − prev|``
     computed in f32 (the kernel gives one such row per row block).
     """
-    out = c * base.float() + csr_aggregate_ref(nbr, wgt, F)
+    out = c * base.float() + _aggregate_f32(nbr, wgt, F)
     delta = (out - prev.float()).abs().amax(dim=0, keepdim=True)
     return out.to(base.dtype), delta

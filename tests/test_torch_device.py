@@ -77,6 +77,17 @@ def test_no_module_imports_jax_or_repro():
         "repro_torch.eval.cv",
         "repro_torch.eval.metrics",
         "repro_torch.scenarios.evaluate",
+        "repro_torch.configs.cells",
+        "repro_torch.configs.gcn_cora",
+        "repro_torch.configs.wide_deep",
+        "repro_torch.data.graphs",
+        "repro_torch.data.recsys",
+        "repro_torch.graph.segment",
+        "repro_torch.graph.structures",
+        "repro_torch.kernels.embedding_bag.ops",
+        "repro_torch.models.convert",
+        "repro_torch.models.gnn",
+        "repro_torch.models.recsys",
     } <= set(modules)
     code = "\n".join(
         [

@@ -14,16 +14,24 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import wide_deep
 from repro_torch.core.solver import HeteroLP, LPConfig
+from repro_torch.data.graphs import planted_partition_graph
+from repro_torch.data.recsys import CTRDataConfig, sample_ctr_batch
 from repro_torch.engine import make_engine
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
+    csr_aggregate_op,
+    csr_aggregate_ref,
     csr_round_op,
     csr_round_ref,
     csr_round_residual_op,
     csr_round_residual_ref,
 )
+from repro_torch.models.gnn import GCN, GCNConfig, gcn_adjacency
+from repro_torch.models.recsys import WideDeep
 from repro_torch.scenarios import generate
 
 pytestmark = pytest.mark.gpu
@@ -251,3 +259,151 @@ def test_sparse_dhlp1_on_the_card(dev, net, fused, storage):
     assert got.outer_iters == want.outer_iters
     if storage == "f32":  # bf16 rounding may move an inner round by one
         assert got.inner_iters == want.inner_iters
+
+
+@pytest.mark.parametrize(
+    "m,n,d,s",
+    [
+        (128, 128, 8, 32),
+        (200, 150, 11, 37),  # ragged on every axis, two columns per lane
+        (256, 256, 33, 128),
+        (1000, 5000, 89, 100),  # the GCN's first layer: D = 89, S = 100
+        (1001, 5000, 89, 16),  # the second: two rows per warp
+        (77, 300, 130, 1),  # one column: 32 rows per warp
+        (50, 60, 5, 300),  # three column tiles, the last ragged
+        (9, 30, 0, 20),  # no slots: zeros
+    ],
+)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_csr_aggregate_kernel_matches_plain(dev, m, n, d, s, dtype):
+    nbr, wgt, F, _, _ = _csr_inputs(m, n, d, s, dtype, dev, seed=m + d + 2)
+    before = launch_counts()["csr_aggregate"]
+    out = csr_aggregate_op(nbr, wgt, F)
+    torch.cuda.synchronize()
+    assert launch_counts()["csr_aggregate"] == before + 1
+    assert out.dtype == STORAGE[dtype] and out.shape == (m, s)
+    _close(out, csr_aggregate_ref(nbr, wgt, F), _tol(dtype))
+    again = csr_aggregate_op(nbr, wgt, F)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)  # no atomics: byte-identical launches
+
+
+def test_csr_aggregate_sums_padding_slots_like_the_reference(dev):
+    """Pads (node 0, weight 0) are summed, not skipped: a NaN in F[0]
+    reaches every row with a pad, as in the plain version's einsum."""
+    nbr, wgt, F, _, _ = _csr_inputs(64, 80, 12, 20, "f32", dev, seed=7)
+    nbr[::2, -3:] = 0
+    wgt[::2, -3:] = 0.0
+    F[0, 5] = float("nan")
+    got = csr_aggregate_op(nbr, wgt, F)
+    want = csr_aggregate_ref(nbr, wgt, F)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[::2, 5]).all()
+    np.testing.assert_array_equal(torch.isnan(got).cpu().numpy(), torch.isnan(want).cpu().numpy())
+
+
+def test_csr_aggregate_rejects_what_it_cannot_take(dev):
+    nbr, wgt, F, _, _ = _csr_inputs(8, 20, 8, 12, "f32", dev, seed=4)
+    before = launch_counts()["csr_aggregate"]
+    with pytest.raises(TypeError):
+        csr_aggregate_op(nbr, wgt.to(torch.bfloat16), F)
+    with pytest.raises(TypeError):
+        csr_aggregate_op(nbr.long(), wgt, F)
+    with pytest.raises(TypeError):
+        csr_aggregate_op(nbr, wgt, F, out=torch.empty(8, 12, device=dev).half())
+    with pytest.raises(ValueError, match="contiguous"):
+        csr_aggregate_op(nbr, wgt, F.t().contiguous().t())
+    with pytest.raises(ValueError, match="is on"):
+        csr_aggregate_op(nbr.cpu(), wgt, F)
+    assert launch_counts()["csr_aggregate"] == before
+
+
+def _bag_inputs(v, d, b, k, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    sdt = STORAGE[dtype]
+    tab = torch.from_numpy(rng.random((v, d)).astype(np.float32)).to(dev, sdt)
+    idx = torch.from_numpy(rng.integers(0, v, (b, k)).astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.random((b, k)).astype(np.float32)).to(dev, sdt)
+    return tab, idx, w
+
+
+@pytest.mark.parametrize(
+    "v,d,b,k",
+    [
+        (1000, 32, 128, 5),
+        (4096, 16, 300, 8),
+        (512, 64, 64, 40),  # two columns per lane
+        (1000, 32, 1001, 1),  # the deep lookup: one 128-byte row per bag
+        (900, 1, 301, 40),  # the wide lookup: lanes over K
+        (100, 3, 77, 7),  # lanes over K, three columns, ragged bags
+        (100, 200, 33, 3),  # two column tiles
+        (64, 8, 20, 0),  # empty bags: zeros
+    ],
+)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_embedding_bag_kernel_matches_plain(dev, v, d, b, k, dtype):
+    tab, idx, w = _bag_inputs(v, d, b, k, dtype, dev, seed=v + d + k)
+    before = launch_counts()["embedding_bag"]
+    out = embedding_bag_op(tab, idx, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["embedding_bag"] == before + 1
+    assert out.dtype == STORAGE[dtype] and out.shape == (b, d)
+    _close(out, embedding_bag_ref(tab, idx, w), _tol(dtype))
+    assert torch.equal(out, embedding_bag_op(tab, idx, w))
+
+
+def test_embedding_bag_one_slot_is_an_exact_gather(dev):
+    tab, idx, _ = _bag_inputs(5000, 32, 4000, 1, "f32", dev, seed=1)
+    got = embedding_bag_op(tab, idx, torch.ones(idx.shape, device=dev))
+    assert torch.equal(got, tab[idx[:, 0].long()])
+
+
+def test_embedding_bag_rejects_what_it_cannot_take(dev):
+    tab, idx, w = _bag_inputs(50, 8, 10, 4, "f32", dev, seed=2)
+    before = launch_counts()["embedding_bag"]
+    with pytest.raises(TypeError):
+        embedding_bag_op(tab, idx.long(), w)
+    with pytest.raises(TypeError):
+        embedding_bag_op(tab, idx, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shape"):
+        embedding_bag_op(tab, idx, w[:5])
+    with pytest.raises(ValueError, match="is on"):
+        embedding_bag_op(tab, idx, w.cpu())
+    assert launch_counts()["embedding_bag"] == before
+
+
+def test_gcn_on_the_card(dev):
+    data = planted_partition_graph(3000, 20000, 7, 100, seed=0, device=dev)
+    cfg = GCNConfig(name="gcn", d_feat=100, n_classes=7)
+    gpu = GCN(cfg, device=dev)
+    cpu = GCN(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    nbr, wgt = gcn_adjacency(data.edges, device=dev)
+    before = launch_counts()["csr_aggregate"]
+    got = gpu(torch.from_numpy(data.feats).to(dev), nbr, wgt)
+    torch.cuda.synchronize()
+    assert launch_counts()["csr_aggregate"] - before == cfg.n_layers
+    want = cpu(torch.from_numpy(data.feats), nbr.cpu(), wgt.cpu())
+    _close(got, want, _tol("f32"))
+
+
+def test_wide_deep_on_the_card(dev):
+    cfg = wide_deep.REDUCED
+    gpu = WideDeep(cfg, device=dev)
+    with torch.no_grad():
+        gpu.wide_table.normal_(0.0, 0.1)
+        gpu.bias.fill_(0.3)
+    cpu = WideDeep(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    batch = sample_ctr_batch(CTRDataConfig(cfg.n_sparse, cfg.n_dense, cfg.vocab_per_field), 700)
+    before = launch_counts()["embedding_bag"]
+    got = gpu.serve(batch["sparse"], batch["dense"])
+    torch.cuda.synchronize()
+    assert launch_counts()["embedding_bag"] - before == 2
+    _close(got, cpu.serve(batch["sparse"], batch["dense"]), _tol("f32"))
+    cand = torch.rand((1024, cfg.mlp_dims[-1]))
+    before = launch_counts()["embedding_bag"]
+    got = gpu.retrieval_score(batch["sparse"][:1], batch["dense"][:1], cand.to(dev))
+    torch.cuda.synchronize()
+    assert launch_counts()["embedding_bag"] - before == 1
+    _close(got, cpu.retrieval_score(batch["sparse"][:1], batch["dense"][:1], cand), _tol("f32"))

@@ -13,16 +13,24 @@ import numpy as np
 import pytest
 import torch
 
+from repro.graph.structures import erdos_renyi
+from repro.kernels.embedding_bag import embedding_bag, embedding_bag_ref as jax_bag_ref
 from repro.kernels.lp_blockspmm import lp_round, lp_round_ref as jax_lp_round_ref
 from repro.kernels.segment_reduce import (
+    csr_aggregate,
+    csr_aggregate_ref as jax_csr_aggregate_ref,
     csr_round,
     csr_round_ref as jax_csr_round_ref,
     csr_round_residual,
     csr_round_residual_ref as jax_csr_ref,
 )
+from repro_torch.graph.structures import EdgeList, PaddedCSR
 from repro_torch.kernels import SOURCES, launch_counts
+from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
+    csr_aggregate_op,
+    csr_aggregate_ref,
     csr_round_op,
     csr_round_ref,
     csr_round_residual_op,
@@ -192,8 +200,137 @@ class TestCSRRound:
         assert torch.equal(csr_round_ref(*args, 0.4), out)
 
     def test_is_built_and_counted_with_the_others(self):
-        assert SOURCES == ("csr_round_residual.cu", "csr_round.cu", "lp_round.cu")
-        assert set(launch_counts()) == {"csr_round_residual", "csr_round", "lp_round"}
+        assert SOURCES == (
+            "csr_round_residual.cu",
+            "csr_round.cu",
+            "lp_round.cu",
+            "csr_aggregate.cu",
+            "embedding_bag.cu",
+        )
+        assert set(launch_counts()) == {
+            "csr_round_residual",
+            "csr_round",
+            "lp_round",
+            "csr_aggregate",
+            "embedding_bag",
+        }
+
+
+class TestCSRAggregate:
+    """B4: plain version vs the Pallas kernel (interpret) and the oracle."""
+
+    @pytest.mark.parametrize("n,d,s", [(128, 8, 32), (200, 11, 37), (256, 33, 128)])
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_sweep_against_jax(self, n, d, s, dtype):
+        nbr, wgt, F, _, _ = _csr_inputs(n, n, d, s, seed=n + d + s)
+        jw, tw = _both(wgt, dtype)
+        jF, tF = _both(F, dtype)
+        jn, tn = jnp.asarray(nbr), torch.from_numpy(nbr)
+
+        got = csr_aggregate_ref(tn, tw, tF)
+        assert got.dtype == DTYPES[dtype][1] and got.shape == (n, s)
+        kern = csr_aggregate(jn, jw, jF, bn=64, bs=32, bd=8, interpret=True)
+        want = jax_csr_aggregate_ref(jn, jw, jF)
+        assert want.dtype == DTYPES[dtype][0]  # F's dtype in both packages
+        for ref_out in (kern, want):
+            np.testing.assert_allclose(_np(got), _np(ref_out), **_tol(dtype))
+        assert torch.equal(csr_aggregate_op(tn, tw, tF), got)
+
+    def test_matches_dense_spmm(self):
+        """The port's padded CSR of a graph, aggregated, is dense ``A @ F``."""
+        ref_edges = erdos_renyi(150, 800, seed=3)
+        edges = EdgeList(ref_edges.src, ref_edges.dst, ref_edges.w, 150)
+        csr = PaddedCSR.from_edgelist(edges, device="cpu")
+        F = np.random.default_rng(3).random((150, 20)).astype(np.float32)
+        got = csr_aggregate_op(
+            torch.from_numpy(csr.nbr), torch.from_numpy(csr.wgt), torch.from_numpy(F)
+        )
+        np.testing.assert_allclose(got.numpy(), edges.to_dense() @ F, rtol=1e-4, atol=1e-5)
+
+    def test_row_chunked_gather_agrees(self, monkeypatch):
+        """Past the budget in M·D alone the plain version chunks rows (as
+        at ogb_products, M·D = 218 M); rows are independent, so only the
+        library's rounding order may change."""
+        from repro_torch.kernels.segment_reduce import ref
+
+        nbr, wgt, F, _, _ = _csr_inputs(90, 70, 12, 45, seed=10)
+        args = [torch.from_numpy(a) for a in (nbr, wgt, F)]
+        whole = csr_aggregate_ref(*args)
+        monkeypatch.setattr(ref, "GATHER_BUDGET", 12 * 45 * 8)  # M·D > budget
+        chunked = csr_aggregate_ref(*args)
+        np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=1e-6, atol=1e-6)
+        monkeypatch.setattr(ref, "GATHER_BUDGET", 20)  # below one row's slots
+        single = csr_aggregate_ref(*args)
+        np.testing.assert_allclose(single.numpy(), whole.numpy(), rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_op_on_cpu_is_the_plain_version(self, dtype):
+        nbr, wgt, F, _, _ = _csr_inputs(40, 60, 16, 24, seed=4)
+        _, tw = _both(wgt, dtype)
+        _, tF = _both(F, dtype)
+        tn = torch.from_numpy(nbr)
+        before = launch_counts()
+        want = csr_aggregate_ref(tn, tw, tF)
+        buf = torch.full((40, 24), float("nan"), dtype=tF.dtype)
+        got = csr_aggregate_op(tn, tw, tF, out=buf)
+        assert got is buf and torch.equal(got, want)
+        assert launch_counts() == before  # the plain version is no launch
+
+
+class TestEmbeddingBag:
+    """B5: plain version vs the Pallas kernel (interpret) and the oracle."""
+
+    @staticmethod
+    def _inputs(v, d, b, k, seed):
+        rng = np.random.default_rng(seed)
+        tab = rng.random((v, d)).astype(np.float32)
+        idx = rng.integers(0, v, (b, k)).astype(np.int32)
+        w = rng.random((b, k)).astype(np.float32)
+        return tab, idx, w
+
+    @pytest.mark.parametrize(
+        "v,d,b,k",
+        [
+            (1000, 32, 128, 5),
+            (4096, 16, 300, 8),
+            (512, 64, 64, 40),
+            (700, 32, 200, 1),  # the deep lookup: one slot per bag
+            (900, 1, 150, 40),  # the wide lookup: D = 1
+        ],
+    )
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_sweep_against_jax(self, v, d, b, k, dtype):
+        tab, idx, w = self._inputs(v, d, b, k, seed=v + d + b + k)
+        jt, tt = _both(tab, dtype)
+        jw, tw = _both(w, dtype)
+        ji, ti = jnp.asarray(idx), torch.from_numpy(idx)
+        got = embedding_bag_ref(tt, ti, tw)
+        assert got.dtype == DTYPES[dtype][1] and got.shape == (b, d)
+        kern = embedding_bag(jt, ji, jw, bb=64, bv=256, interpret=True)
+        want = jax_bag_ref(jt, ji, jw)
+        for ref_out in (kern, want):
+            np.testing.assert_allclose(_np(got), _np(ref_out), **_tol(dtype))
+        assert torch.equal(embedding_bag_op(tt, ti, tw), got)
+
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_one_slot_of_weight_one_is_an_exact_gather(self, dtype):
+        tab, idx, _ = self._inputs(300, 32, 500, 1, seed=8)
+        _, tt = _both(tab, dtype)
+        got = embedding_bag_op(tt, torch.from_numpy(idx), torch.ones((500, 1), dtype=tt.dtype))
+        assert torch.equal(got, tt[torch.from_numpy(idx[:, 0]).long()])
+
+    def test_counts_each_index_once(self):
+        tab = torch.from_numpy(np.eye(100, 8, dtype=np.float32))
+        got = embedding_bag_op(tab, torch.tensor([[3, 3, 3]], dtype=torch.int32), torch.ones(1, 3))
+        assert torch.equal(got, 3 * tab[3:4])
+
+    def test_op_on_cpu_is_the_plain_version(self):
+        tab, idx, w = (torch.from_numpy(a) for a in self._inputs(64, 8, 20, 6, seed=2))
+        before = launch_counts()
+        buf = torch.full((20, 8), float("nan"))
+        got = embedding_bag_op(tab, idx, w, out=buf)
+        assert got is buf and torch.equal(got, embedding_bag_ref(tab, idx, w))
+        assert launch_counts() == before
 
 
 class TestLPRound:
@@ -250,6 +387,16 @@ class TestWrappersNeverFallBack:
         meta = lambda *shape: torch.empty(shape, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             lp_round_op(meta(6, 6), meta(6, 2), meta(6, 2), c=1.0)
+
+    def test_csr_aggregate_raises_off_cpu(self):
+        meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            csr_aggregate_op(meta(4, 8, dt=torch.int32), meta(4, 8), meta(10, 3))
+
+    def test_embedding_bag_raises_off_cpu(self):
+        meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            embedding_bag_op(meta(10, 4), meta(3, 2, dt=torch.int32), meta(3, 2))
 
     def test_mixed_devices_raise(self):
         cpu = torch.zeros(6, 6)
