@@ -41,14 +41,25 @@ Phases (each raises on failure, so the script exits non-zero):
     ``retrieval_cand`` on the kernel path (two ``embedding_bag`` launches
     per serve call, one per retrieval call) and on the plain path, at the
     same tolerance; peak device memory with the 5.12 GB table resident;
+10a. ``flash_attention`` vs its plain version at the transformer path's
+    shapes (``h2o-danube-1.8b`` prefill_32k and decode_32k layer launches
+    and an 8k f32 one, a ``stablelm-1.6b`` 4k one), with timings, bounds
+    and ``scaled_dot_product_attention`` as the library yardstick;
+10b. ``h2o-danube-1.8b`` at full width in f32: prefill of 8,192 tokens and
+    16 decode steps, kernel path vs plain path at ``rtol=2e-4, atol=5e-4``;
+10c. ``h2o-danube-1.8b`` ``FULL`` serving in bf16 on the kernel path:
+    ``prefill_32k`` (batch 1) and ``decode_32k`` (batch 128, a 4,096-slot
+    cache filled by 3,968-token prefills, 64 greedy steps), walls, tokens/s,
+    peak memory, one traced call of each, and the plain prefill's gap;
 11. the kernel list: launches of each kernel on its path (phases 4-5 for
     ``csr_round_residual`` and ``lp_round``, phase 6 for ``csr_round``,
-    phase 9 for ``csr_aggregate``, phase 10 for ``embedding_bag``; all
-    must be non-zero), with the phase 3 and phase 8 measurements;
+    phase 9 for ``csr_aggregate``, phase 10 for ``embedding_bag``, phase
+    10c for ``flash_attention``; all must be non-zero), with the phase 3,
+    8 and 10a measurements;
 12. the result line.
 
-Phases 4, 6, 7, 9 and 10 each also trace one call with ``torch.profiler``
-(after one untraced warm-up call).
+Phases 4, 6, 7, 9, 10 and 10c each also trace calls with
+``torch.profiler`` (after one untraced warm-up call).
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -66,6 +77,7 @@ SRC = ROOT / "src"
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12  # HBM3
 F32_TOL = dict(rtol=2e-4, atol=5e-4)  # tests/test_kernels.py::_tol
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -120,8 +132,8 @@ def check_close(np, name, got, want, tol) -> float:
     return err
 
 
-def bound(ops: float, nbytes: float):
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+def bound(ops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    t_ops = ops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -139,11 +151,12 @@ def wall_s(torch, fn, *, iters: int) -> list:
     return times
 
 
-def trace_solve(torch, label: str, fn) -> None:
+def trace_solve(torch, label: str, fn):
     """Run ``fn`` twice under ``torch.profiler``, recording the second
     run; print its wall time, the device's busy time (the union of its
     kernel and copy intervals) and the eight device entries that took the
-    most time.
+    most time.  Returns the traced wall (s), the busy time (µs) and the
+    device time (µs) and count of each entry by name.
 
     The first run is the profiler's warm-up step: the device events of
     the first milliseconds after the profiler starts can be lost (a
@@ -191,6 +204,337 @@ def trace_solve(torch, label: str, fn) -> None:
         f"(busy share {busy_us / (t_p * 1e6):.3f}; {len(events)} device events)")
     for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"    {total / 1e3:9.2f} ms  x{count:<5d} {name[:70]}")
+    return t_p, busy_us, by_name
+
+
+# B6 at the transformer path's shapes, sequence-major (B, L, H, D) as the
+# model hands them over: label, B, Hq, Hkv, Lq, Lk, D, window, q_offset, dtype
+FLASH_SHAPES = (
+    ("h2o-danube-1.8b prefill_32k layer", 1, 32, 8, 32768, 32768, 80, 4096, 0, "bf16"),
+    ("h2o-danube-1.8b decode_32k layer", 128, 32, 8, 1, 4096, 80, 4096, 4000, "bf16"),
+    ("stablelm-1.6b prefill 4k layer", 1, 32, 32, 4096, 4096, 64, None, 0, "bf16"),
+    ("h2o-danube-1.8b prefill 8k layer", 1, 32, 8, 8192, 8192, 80, 4096, 0, "f32"),
+)
+
+
+def live_pairs(np, lq, lk, q_offset, window) -> int:
+    """(q, k) pairs a causal, optionally windowed, attention computes."""
+    qp = np.arange(lq, dtype=np.int64) + q_offset
+    hi = np.minimum(lk - 1, qp)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros_like(qp)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def plain_attention(torch, gqa_attention_op, q, k, v, window, q_offset, chunk=2048):
+    """B6's plain version over query chunks, each against the keys its rows
+    can see (positions shifted, so the masks are unchanged): a 32k prompt's
+    whole (Lq, Lk) score matrix does not fit the card."""
+    lq, lk = q.shape[1], k.shape[1]
+    outs = []
+    for a in range(0, lq, chunk):
+        e = min(lq, a + chunk)
+        hi = min(lk, q_offset + e)
+        lo = max(0, q_offset + a - window + 1) if window else 0
+        outs.append(gqa_attention_op(
+            q[:, a:e], k[:, lo:hi], v[:, lo:hi], window=window, q_offset=q_offset + a - lo,
+            use_kernel=False, layout="blhd"))
+    return torch.cat(outs, dim=1)
+
+
+def device_kernel_names(torch, fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs, recorded in the
+    second of two profiled steps (``trace_solve``'s warm-up: the first
+    step's device events can be lost)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    recorded = []
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=1, active=1),
+        on_trace_ready=lambda p: recorded.append(list(p.events())),
+    ) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if not recorded:
+        fail("profile of an SDPA call: the profiler recorded no step")
+    return sorted({e.name for e in recorded[0] if e.device_type != DeviceType.CPU
+                   and not e.name.startswith("ProfilerStep")})
+
+
+def sdpa_backend(names) -> str:
+    """The SDPA backend from its kernels' names (cuDNN's contain "flash" too)."""
+    if not names:
+        return "backend not recorded by the profiler"
+    joined = " ".join(names).lower()
+    for key, label in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                       ("efficient", "efficient")):
+        if key in joined:
+            return label
+    return "math"
+
+
+def flash_kernel_phase(torch, np, dev) -> dict:
+    """B6 against its plain version at the serving path's shapes, with
+    CUDA-event times, the bound and one ``scaled_dot_product_attention``
+    call as the library yardstick (timed only; the port never calls it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import gqa_attention_op
+
+    fused = [getattr(SDPBackend, n) for n in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                                              "CUDNN_ATTENTION") if hasattr(SDPBackend, n)]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for label, b, hq, hkv, lq, lk, d, window, q_offset, dt in FLASH_SHAPES:
+        dtype, tol = ((torch.bfloat16, BF16_TOL) if dt == "bf16" else (torch.float32, F32_TOL))
+        q = torch.randn((b, lq, hq, d), generator=gen, device=dev).to(dtype)
+        kv = torch.randn((2, b, lk, hkv, d), generator=gen, device=dev).to(dtype)
+        k, v = kv[0], kv[1]  # cache slices, as the model passes them
+        tag = (f"flash_attention {dt} {label} (B={b}, Hq={hq}, Hkv={hkv}, Lq={lq}, Lk={lk}, "
+               f"D={d}, window={window}, q_offset={q_offset})")
+
+        def kern():
+            return gqa_attention_op(q, k, v, window=window, q_offset=q_offset, layout="blhd")
+
+        def plain():
+            return plain_attention(torch, gqa_attention_op, q, k, v, window, q_offset)
+
+        out_k = kern()
+        torch.cuda.synchronize()
+        err = check_close(np, tag, out_k, plain(), tol)
+        if not torch.equal(out_k, kern()):
+            fail(f"{tag}: two launches gave different bytes")
+        # the library yardstick on (B, H, L, D) views, KV heads repeated
+        g = hq // hkv
+        qh = q.transpose(1, 2)
+        kh = k.transpose(1, 2).repeat_interleave(g, dim=1)
+        vh = v.transpose(1, 2).repeat_interleave(g, dim=1)
+        if window is None and q_offset == 0 and lq == lk:
+            mask, causal = None, True
+        else:
+            qp = torch.arange(lq, device=dev)[:, None] + q_offset
+            kp = torch.arange(lk, device=dev)[None, :]
+            mask = kp <= qp
+            if window:
+                mask &= kp > qp - window
+            causal = False
+
+        def lib():
+            with sdpa_kernel(fused):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, is_causal=causal)
+
+        heavy = lq * lk >= 2**26
+        try:
+            lib_out = lib()
+            torch.cuda.synchronize()
+            names = device_kernel_names(torch, lib)
+            backend = sdpa_backend(names)
+            log(f"    SDPA kernels: {'; '.join(n[:90] for n in names)}")
+        except RuntimeError as exc:  # no fused backend takes this call
+            lib_out, backend = None, f"unavailable ({str(exc).splitlines()[0][:120]})"
+        if lib_out is not None:
+            check_close(np, tag + " vs scaled_dot_product_attention", out_k,
+                        lib_out.transpose(1, 2), tol)
+        del out_k, lib_out
+        ms = cuda_ms(torch, kern, warmup=1, iters=3 if heavy else 20)
+        plain_ms = cuda_ms(torch, plain, warmup=1, iters=2 if heavy else 5)
+        lib_ms = (cuda_ms(torch, lib, warmup=1, iters=3 if heavy else 20)
+                  if not backend.startswith("unavailable") else None)
+        pairs = live_pairs(np, lq, lk, q_offset, window) * b * hq
+        esize = 2 if dt == "bf16" else 4
+        read_keys = min(lk, q_offset + lq)  # keys past the last query are never read
+        nbytes = esize * d * (2.0 * b * lq * hq + 2.0 * b * read_keys * hkv)
+        bms, by = bound(4.0 * d * pairs, nbytes,
+                        PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS)
+        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA ({backend}) "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bms:.4f} ms ({by}); "
+            f"{pairs / 1e6:.1f} M live (q, k) pairs, {4.0 * d * pairs / ms / 1e9:.2f} TFLOP/s")
+        rows.append(dict(label=label, dtype=dt, err=err, ms=ms, plain_ms=plain_ms,
+                         lib_ms=lib_ms, backend=backend, bound_ms=bms, by=by))
+        del q, kv, k, v, kh, vh, mask
+        torch.cuda.empty_cache()
+    return {"rows": rows, "err": max(r["err"] for r in rows)}
+
+
+AGREE_PROMPT, AGREE_STEPS = 8192, 16  # f32 agreement: prompt past the 4,096 window
+DECODE_PROMPT, DECODE_STEPS, DECODE_GROUP = 3968, 64, 16  # decode_32k fill and steps
+
+
+def transformer_agreement_phase(torch, np, dev) -> None:
+    """h2o-danube-1.8b at full width in f32: a prefill of 8,192 tokens into
+    an 8,208-slot cache, then 16 decode steps fed the same tokens, on the
+    kernel path and on the plain path; the logits must agree at f32
+    ``rtol=2e-4, atol=5e-4``."""
+    import dataclasses
+
+    from repro_torch.configs import h2o_danube_1_8b
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import (
+        Transformer, init_cache, make_decode_step, make_prefill)
+
+    cfg = dataclasses.replace(h2o_danube_1_8b.FULL, dtype=torch.float32)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} f32: {cfg.param_count()} parameters made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (1, AGREE_PROMPT + AGREE_STEPS))
+    prefill, decode_step = make_prefill(model), make_decode_step(model)
+
+    def run():
+        caches = init_cache(cfg, 1, AGREE_PROMPT + AGREE_STEPS, device=dev)
+        out = [prefill(toks[:, :AGREE_PROMPT], caches)[0]]
+        for i in range(AGREE_STEPS):
+            pos = AGREE_PROMPT + i
+            out.append(decode_step(caches, toks[:, pos:pos + 1], pos)[0])
+        return torch.stack(out)
+
+    got = {}
+    for use_kernel in (True, False):
+        model.use_kernel = use_kernel
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[use_kernel] = run()
+        torch.cuda.synchronize()
+        n = launch_counts()["flash_attention"]
+        log(f"  {'kernel' if use_kernel else 'plain'} path: prefill + {AGREE_STEPS} steps in "
+            f"{time.perf_counter() - t0:.3f} s wall, {n} flash_attention launches")
+        want = cfg.n_layers * (1 + AGREE_STEPS) if use_kernel else 0
+        if n != want or sum(launch_counts().values()) != n:
+            fail(f"{'kernel' if use_kernel else 'plain'} path launched {launch_counts()}, "
+                 f"expected {want} flash_attention")
+    check_close(np, f"{cfg.name} f32 logits (prefill {AGREE_PROMPT} + {AGREE_STEPS} steps), "
+                "kernel path vs plain path", got[True], got[False], F32_TOL)
+    del model, got
+    torch.cuda.empty_cache()
+
+
+def transformer_serving_phase(torch, np, dev) -> dict:
+    """h2o-danube-1.8b FULL in bf16 on the kernel path: ``prefill_32k``
+    (batch cut from 32 to 1) and ``decode_32k`` (128 sequences, the
+    4,096-slot SWA cache filled by prefills of 3,968-token prompts in
+    groups of 16 rows, then 64 greedy steps).  The launch counts are read
+    over exactly those calls; traces and the plain run come after."""
+    from repro_torch.configs import cells, h2o_danube_1_8b
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import (
+        Transformer, init_cache, make_decode_step, make_prefill)
+
+    cfg = h2o_danube_1_8b.FULL
+    rng = np.random.default_rng(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} bf16: {cfg.param_count()} parameters "
+        f"({(torch.cuda.memory_allocated() - mem0) / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s ({mem0 / 1e9:.2f} GB allocated before)")
+    prefill, decode_step = make_prefill(model), make_decode_step(model)
+    res = {}
+
+    # (a) prefill_32k at batch 1
+    seq = cells.LM_SHAPES["prefill_32k"]["seq"]
+    p_toks = rng.integers(0, cfg.vocab, (1, seq))
+    p_caches = init_cache(cfg, 1, cells.lm_cache_len(cfg, "prefill_32k"), device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill(p_toks, p_caches)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    res["prefill_launches"] = launch_counts()["flash_attention"]
+    walls = sorted(wall_s(torch, lambda: prefill(p_toks, p_caches), iters=3))
+    res["prefill_wall"] = walls[len(walls) // 2]
+    res["prefill_peak_gb"] = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    log(f"== phase 10c (a): prefill_32k, B = 1 x {seq} tokens: first call {t_first:.3f} s, "
+        f"then {', '.join(f'{t:.4f}' for t in walls)} s; median {res['prefill_wall']:.4f} s, "
+        f"{seq / res['prefill_wall']:.0f} tokens/s; {res['prefill_launches']} flash_attention "
+        f"launches in the first call; peak device memory {res['prefill_peak_gb']:.2f} GB since "
+        "the model was made")
+    if logits.shape != (1, cfg.padded_vocab) or not torch.isfinite(logits).all():
+        fail(f"prefill_32k logits: shape {tuple(logits.shape)} or non-finite values")
+
+    # (b) decode_32k: fill the 4,096-slot cache, then 64 greedy steps
+    batch = cells.LM_SHAPES["decode_32k"]["batch"]
+    slots = cells.lm_cache_len(cfg, "decode_32k")
+    del p_caches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    caches = init_cache(cfg, batch, slots, device=dev)
+    d_toks = rng.integers(0, cfg.vocab, (batch, DECODE_PROMPT))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = []
+    for g in range(0, batch, DECODE_GROUP):
+        lg, _ = prefill(d_toks[g:g + DECODE_GROUP], caches[:, :, g:g + DECODE_GROUP])
+        last.append(lg)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    tok = torch.cat(last).argmax(-1, keepdim=True)
+    before_steps = launch_counts()["flash_attention"]
+    steps = []
+    for i in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = decode_step(caches, tok, DECODE_PROMPT + i)
+        tok = lg.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    res["launches"] = counts["flash_attention"]
+    res["decode_launches"] = res["launches"] - before_steps
+    want = cfg.n_layers * (1 + len(walls) + batch // DECODE_GROUP + DECODE_STEPS)
+    if res["launches"] != want or sum(counts.values()) != res["launches"]:
+        fail(f"serving launched {counts}, expected {want} flash_attention")
+    if not torch.isfinite(lg).all() or tok.shape != (batch, 1):
+        fail("decode_32k: non-finite logits")
+    srt = sorted(steps)
+    res["step_wall"] = srt[len(srt) // 2]
+    res["peak_gb"] = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    log(f"== phase 10c (b): decode_32k, B = {batch}, cache {slots} slots "
+        f"({caches.numel() * caches.element_size() / 1e9:.2f} GB): fill ({batch // DECODE_GROUP} "
+        f"prefills of {DECODE_GROUP} x {DECODE_PROMPT}) {t_fill:.3f} s; {DECODE_STEPS} greedy "
+        f"steps at positions {DECODE_PROMPT}-{DECODE_PROMPT + DECODE_STEPS - 1}: median "
+        f"{res['step_wall'] * 1e3:.3f} ms, min {srt[0] * 1e3:.3f}, max {srt[-1] * 1e3:.3f} ms "
+        f"per step, {batch / res['step_wall']:.0f} tokens/s; {res['decode_launches']} "
+        f"flash_attention launches over the steps; peak device memory {res['peak_gb']:.2f} GB "
+        "since the model was made")
+    log(f"  decode_32k: first 8 sequences' last tokens {tok[:8, 0].tolist()}")
+
+    # where the time goes: one traced decode step and one traced prefill
+    t_p, busy, by_name = trace_solve(
+        torch, "decode_32k step", lambda: decode_step(caches, tok, DECODE_PROMPT + DECODE_STEPS))
+    b6 = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name)
+    log(f"  flash_attention share of the traced decode step: {b6 / (t_p * 1e6):.3f} of wall, "
+        f"{b6 / busy:.3f} of device busy")
+    del caches
+    torch.cuda.empty_cache()
+    p_caches = init_cache(cfg, 1, seq, device=dev)
+    t_p, busy, by_name = trace_solve(torch, "prefill_32k", lambda: prefill(p_toks, p_caches))
+    b6 = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name)
+    log(f"  flash_attention share of the traced prefill: {b6 / (t_p * 1e6):.3f} of wall, "
+        f"{b6 / busy:.3f} of device busy")
+
+    # the plain path once, for the logit gap (printed, not gated: bf16 over 24 layers)
+    model.use_kernel = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain, _ = prefill(p_toks, p_caches)
+    torch.cuda.synchronize()
+    model.use_kernel = True
+    gap = float((logits.float() - plain.float()).abs().max())
+    log(f"  prefill_32k plain path {time.perf_counter() - t0:.3f} s; logits max|Δ| kernel vs "
+        f"plain {gap:.4e} (logit scale {float(plain[:, :cfg.vocab].float().abs().max()):.3f}; not gated)")
+    del model, p_caches, logits, plain
+    torch.cuda.empty_cache()
+    return res
 
 
 def top10_lists(np, topk_exclusive, extract_outputs, F, norm, known):
@@ -861,14 +1205,28 @@ def main() -> int:
     if peak < table_bytes:
         fail(f"peak device memory {peak} below the table's {table_bytes} bytes")
     trace_solve(torch, "Wide & Deep serve_bulk call", calls["serve_bulk"])
-    del wd, cand, outs, p, wide_tab
+    del wd, serve, score, calls, cand, outs, p, wide_tab  # the bound methods hold the table
     torch.cuda.empty_cache()
+
+    # ------------------------ 10a. flash_attention vs its plain version
+    log("== phase 10a: flash_attention vs its plain version at the transformer path's shapes")
+    b6 = flash_kernel_phase(torch, np, dev)
+    b6_head = b6["rows"][0]  # the prefill_32k layer launch
+
+    # ------------------- 10b. transformer agreement at full width, f32
+    log("== phase 10b: h2o-danube-1.8b FULL widths in f32, kernel path vs plain path")
+    transformer_agreement_phase(torch, np, dev)
+
+    # --------------------- 10c. transformer serving at full size, bf16
+    log("== phase 10c: h2o-danube-1.8b FULL serving in bf16 on the kernel path")
+    serving = transformer_serving_phase(torch, np, dev)
 
     # ------------------------------------------------ 11. the kernel list
     log("== phase 11: kernels")
     counts["csr_round"] = legacy_counts["csr_round"]
     counts["csr_aggregate"] = gcn_counts["csr_aggregate"]
     counts["embedding_bag"] = wd_counts["embedding_bag"]
+    counts["flash_attention"] = serving["launches"]
     for name, cnt in counts.items():
         if cnt <= 0:
             fail(f"kernel {name} was not launched on its path")
@@ -937,6 +1295,19 @@ def main() -> int:
             "bound_ms": b5["bound_ms"],
             "bound_by": b5["by"],
             "library_ms": b5["lib_ms"],
+        },
+        {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+            "launches": counts["flash_attention"],
+            "max_abs_err": b6["err"],
+            "ms": b6_head["ms"],
+            "plain_ms": b6_head["plain_ms"],
+            "bound_ms": b6_head["bound_ms"],
+            "bound_by": b6_head["by"],
+            "library_ms": b6_head["lib_ms"],
         },
     ]
     log(f"  total {time.perf_counter() - t_script:.1f} s")

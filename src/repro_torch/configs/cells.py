@@ -1,7 +1,8 @@
-"""The shapes of the GCN and Wide & Deep cells, from ``repro.configs.cells``.
+"""The shapes of the LM, GCN and Wide & Deep cells, from ``repro.configs.cells``.
 
-Only the shape tables and ``pad512``: the ``ArchSpec`` registry and the
-dry-run ``Cell`` machinery wait for the slice that ports ``launch/``.
+Only the shape tables, the LM cache-length rule and ``pad512``: the
+``ArchSpec`` registry and the dry-run ``Cell`` machinery wait for the
+slice that ports ``launch/``.
 """
 
 from __future__ import annotations
@@ -9,11 +10,37 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.models.gnn import GCNConfig
+from repro_torch.models.transformer import TransformerConfig
 
 
 def pad512(x: int) -> int:
     """Round up to a shard-friendly multiple, as the reference's cells do."""
     return ((int(x) + 511) // 512) * 512
+
+
+# repro.configs.cells.lm_cell: train and prefill take (batch, seq) tokens;
+# decode takes `batch` one-token steps against a cache of `ctx` positions
+LM_SHAPES = {
+    "train_4k": dict(seq=4096, batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768, batch=32, kind="prefill"),
+    "decode_32k": dict(ctx=32768, batch=128, kind="decode"),
+    "long_500k": dict(ctx=524288, batch=1, kind="decode"),
+}
+
+
+def lm_cache_len(cfg: TransformerConfig, shape_name: str) -> int:
+    """KV buffer slots of an LM cell: ``seq`` for prefill; for decode the
+    window of an SWA config, ``min(ctx, window)``, else ``ctx``
+    (``repro/configs/cells.py:116``).  A full-attention config has no
+    ``long_500k`` cell (``repro`` skips it) and raises here."""
+    sh = LM_SHAPES[shape_name]
+    if sh["kind"] == "train":
+        raise ValueError(f"{shape_name} is a training shape: no cache")
+    if sh["kind"] == "prefill":
+        return sh["seq"]
+    if shape_name == "long_500k" and not cfg.sub_quadratic:
+        raise ValueError(f"{cfg.name}: full quadratic attention has no {shape_name} cell")
+    return min(sh["ctx"], cfg.window) if cfg.window else sh["ctx"]
 
 
 GNN_SHAPES = {
@@ -45,4 +72,4 @@ def gcn_at_shape(cfg: GCNConfig, shape_name: str) -> GCNConfig:
     return dataclasses.replace(cfg, d_feat=sh["d_feat"], n_classes=sh["n_classes"])
 
 
-__all__ = ["GNN_SHAPES", "RECSYS_SHAPES", "gcn_at_shape", "pad512"]
+__all__ = ["GNN_SHAPES", "LM_SHAPES", "RECSYS_SHAPES", "gcn_at_shape", "lm_cache_len", "pad512"]

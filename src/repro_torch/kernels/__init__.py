@@ -8,6 +8,7 @@ csr_round              repro/kernels/segment_reduce/kernel.py       csrc/csr_rou
 lp_round               repro/kernels/lp_blockspmm/kernel.py         csrc/lp_round.cu
 csr_aggregate          repro/kernels/segment_reduce/kernel.py       csrc/csr_aggregate.cu
 embedding_bag          repro/kernels/embedding_bag/kernel.py        csrc/embedding_bag.cu
+flash_attention        repro/kernels/flash_attention/kernel.py      csrc/flash_attention.cu
 =====================  ==========================================  ====================
 
 Each ``*_op`` wrapper takes the plain version for CPU tensors and launches
@@ -15,8 +16,13 @@ its kernel for CUDA tensors (or raises); each kernel launch adds one to
 the wrapper's :class:`~repro_torch.kernels.common.LaunchCounter`.
 """
 
-from repro_torch.kernels import embedding_bag, lp_blockspmm, segment_reduce
+from repro_torch.kernels import embedding_bag, flash_attention, lp_blockspmm, segment_reduce
 from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
+from repro_torch.kernels.flash_attention import (
+    attention_ref,
+    flash_attention_op,
+    gqa_attention_op,
+)
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
     csr_aggregate_op,
@@ -36,6 +42,7 @@ COUNTERS = {
         lp_blockspmm.LAUNCHES,
         segment_reduce.AGGREGATE_LAUNCHES,
         embedding_bag.LAUNCHES,
+        flash_attention.LAUNCHES,
     )
 }
 #: every kernel's CUDA source under ``csrc/``
@@ -45,6 +52,7 @@ SOURCES = (
     lp_blockspmm.ops.SOURCE,
     segment_reduce.ops.AGGREGATE_SOURCE,
     embedding_bag.ops.SOURCE,
+    flash_attention.ops.SOURCE,
 )
 
 
@@ -60,6 +68,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "COUNTERS",
     "SOURCES",
+    "attention_ref",
     "csr_aggregate_op",
     "csr_aggregate_ref",
     "csr_round_op",
@@ -68,6 +77,8 @@ __all__ = [
     "csr_round_residual_ref",
     "embedding_bag_op",
     "embedding_bag_ref",
+    "flash_attention_op",
+    "gqa_attention_op",
     "launch_counts",
     "lp_round_op",
     "lp_round_ref",

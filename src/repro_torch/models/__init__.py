@@ -1,4 +1,5 @@
-"""The port's models: GCN full-graph inference and Wide & Deep serving."""
+"""The port's models: GCN full-graph inference, Wide & Deep serving and
+transformer serving (GQA, dense FFN)."""
 
 from repro_torch.models.gnn import GCN, GCNConfig, gcn_adjacency, gcn_forward
 from repro_torch.models.recsys import (
@@ -7,14 +8,26 @@ from repro_torch.models.recsys import (
     make_retrieval_scorer,
     make_serve,
 )
+from repro_torch.models.transformer import (
+    Transformer,
+    TransformerConfig,
+    init_cache,
+    make_decode_step,
+    make_prefill,
+)
 
 __all__ = [
     "GCN",
     "GCNConfig",
+    "Transformer",
+    "TransformerConfig",
     "WideDeep",
     "WideDeepConfig",
     "gcn_adjacency",
     "gcn_forward",
+    "init_cache",
+    "make_decode_step",
+    "make_prefill",
     "make_retrieval_scorer",
     "make_serve",
 ]

@@ -1,7 +1,7 @@
-"""Shared model building blocks: initialisers and the MLP.
+"""Shared model building blocks: initialisers, the MLP, norms and RoPE.
 
-The port's counterparts of ``repro.models.common`` for the GCN and Wide &
-Deep: the same distributions (``dense_init`` N(0, 1)/√fan_in,
+The port's counterparts of ``repro.models.common`` for the GCN, Wide &
+Deep and the transformer: the same distributions (``dense_init`` N(0, 1)/√fan_in,
 ``embed_init`` N(0, 1)·0.02), drawn from an explicit ``torch.Generator``
 on the parameter's device.  ``jax.random`` keys and torch generators give
 different numbers from one seed: parity tests carry ``repro``'s
@@ -10,7 +10,7 @@ parameters across instead (:mod:`repro_torch.models.convert`).
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -45,4 +45,66 @@ def mlp(
     return h
 
 
-__all__ = ["dense_init", "embed_init", "mlp"]
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Computed in f32, returned in ``x.dtype``."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """``(silu(x W_g) ⊙ x W_u) W_d``; the SiLU in f32, the products in x's dtype."""
+    g = x @ w_gate
+    u = x @ w_up
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return h @ w_down
+
+
+# ------------------------------------------------------------------- RoPE
+def rope_frequencies(d_head: int, max_pos: int, theta: float = 10000.0, device=None):
+    inv = 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head))
+    pos = torch.arange(max_pos, dtype=torch.float32, device=device)
+    ang = pos[:, None] * inv[None, :]
+    return torch.cos(ang), torch.sin(ang)  # (max_pos, d_head/2)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., L, D) with D even; positions: (..., L) absolute positions
+    (broadcast against x's leading axes).
+
+    Rotates the INTERLEAVED pairs ``(x[..., 0::2], x[..., 1::2])`` in f32
+    and restacks them, as ``repro`` does — not the half-split
+    ``rotate_half`` form.
+    """
+    d = x.shape[-1]
+    inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d))
+    ang = positions[..., None].float() * inv  # (..., L, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    out = torch.stack([o1, o2], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)
+
+
+def causal_mask(
+    lq: int, lk: int, q_offset: int = 0, window: Optional[int] = None, device=None
+) -> torch.Tensor:
+    q_pos = torch.arange(lq, device=device) + q_offset
+    k_pos = torch.arange(lk, device=device)
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > q_pos[:, None] - window
+    return m
+
+
+__all__ = [
+    "apply_rope",
+    "causal_mask",
+    "dense_init",
+    "embed_init",
+    "mlp",
+    "rms_norm",
+    "rope_frequencies",
+    "swiglu",
+]

@@ -85,6 +85,10 @@ def test_no_module_imports_jax_or_repro():
         "repro_torch.graph.segment",
         "repro_torch.graph.structures",
         "repro_torch.kernels.embedding_bag.ops",
+        "repro_torch.kernels.flash_attention.ops",
+        "repro_torch.configs.h2o_danube_1_8b",
+        "repro_torch.configs.stablelm_1_6b",
+        "repro_torch.models.transformer",
         "repro_torch.models.convert",
         "repro_torch.models.gnn",
         "repro_torch.models.recsys",

@@ -10,17 +10,20 @@ versions are held against the JAX reference by the CPU tests), and the
 engines that launch them against the torch-op engines.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import wide_deep
+from repro_torch.configs import h2o_danube_1_8b, stablelm_1_6b, wide_deep
 from repro_torch.core.solver import HeteroLP, LPConfig
 from repro_torch.data.graphs import planted_partition_graph
 from repro_torch.data.recsys import CTRDataConfig, sample_ctr_batch
 from repro_torch.engine import make_engine
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
+from repro_torch.kernels.flash_attention import attention_ref, gqa_attention_op
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
     csr_aggregate_op,
@@ -32,6 +35,7 @@ from repro_torch.kernels.segment_reduce import (
 )
 from repro_torch.models.gnn import GCN, GCNConfig, gcn_adjacency
 from repro_torch.models.recsys import WideDeep
+from repro_torch.models.transformer import Transformer, init_cache
 from repro_torch.scenarios import generate
 
 pytestmark = pytest.mark.gpu
@@ -407,3 +411,118 @@ def test_wide_deep_on_the_card(dev):
     torch.cuda.synchronize()
     assert launch_counts()["embedding_bag"] - before == 1
     _close(got, cpu.retrieval_score(batch["sparse"][:1], batch["dense"][:1], cand), _tol("f32"))
+
+
+# --------------------------------------------------------------- B6 flash_attention
+def _attn_inputs(b, hq, hkv, lq, lk, d, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    cast = lambda a: torch.from_numpy(a.astype(np.float32)).to(device=dev, dtype=STORAGE[dtype])
+    return (cast(rng.standard_normal((b, hq, lq, d))), cast(rng.standard_normal((b, hkv, lk, d))),
+            cast(rng.standard_normal((b, hkv, lk, d))))
+
+
+def _attn_plain(q, k, v, **kw):
+    g = q.shape[1] // k.shape[1]
+    return attention_ref(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), **kw)
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,lq,lk,d,window,q_offset",
+    [
+        (2, 4, 4, 128, 128, 64, None, 0),  # tests/test_kernels.py::TestFlashAttention sweep
+        (1, 2, 2, 100, 100, 32, 48, 0),
+        (2, 2, 2, 1, 256, 64, None, 255),
+        (1, 3, 3, 130, 200, 64, None, 70),
+        (1, 1, 1, 64, 512, 128, 128, 448),
+        (2, 4, 2, 96, 96, 16, 16, 0),  # danube REDUCED: GQA 4/2, D = 16, window 16
+        (1, 8, 2, 300, 300, 80, 64, 0),  # danube's group of 4 and D = 80
+        (3, 32, 8, 1, 700, 80, 512, 650),  # a danube decode step
+        (2, 4, 1, 5, 40, 32, None, 35),  # 20 rows per KV head: the 64-row tile
+        (1, 32, 1, 1, 100, 64, None, 99),  # one KV head for 32 query heads
+    ],
+)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_kernel_matches_plain(dev, b, hq, hkv, lq, lk, d, window, q_offset, dtype):
+    q, k, v = _attn_inputs(b, hq, hkv, lq, lk, d, dtype, dev, seed=lq + lk + d)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    before = launch_counts()["flash_attention"]
+    got = gqa_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, _attn_plain(q, k, v, **kw), _tol(dtype))
+    assert torch.equal(got, gqa_attention_op(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_reads_the_cache_layout_in_place(dev, dtype):
+    """Sequence-major q and (2, B, S, Hkv, D) cache slices, read through strides."""
+    b, hq, hkv, s, lq, d = 3, 8, 2, 64, 7, 80
+    q, _, _ = _attn_inputs(b, hq, hkv, lq, s, d, dtype, dev, seed=5)
+    cache = torch.randn((2, b, s, hkv, d), device=dev).to(STORAGE[dtype])
+    qs = q.transpose(1, 2)  # (B, Lq, Hq, D), not contiguous
+    got = gqa_attention_op(qs, cache[0], cache[1], window=16, q_offset=40, layout="blhd")
+    want = _attn_plain(q, cache[0].transpose(1, 2), cache[1].transpose(1, 2), window=16,
+                       q_offset=40)
+    _close(got.transpose(1, 2), want, _tol(dtype))
+
+
+def test_flash_attention_rows_without_keys_are_nan_like_the_plain_version(dev):
+    q, k, v = _attn_inputs(1, 2, 2, 6, 8, 32, "f32", dev, seed=3)
+    for kw in (dict(window=2, q_offset=10), dict(q_offset=-2)):
+        got = gqa_attention_op(q, k, v, **kw)
+        want = _attn_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(want).any()
+        keep = ~torch.isnan(want)
+        _close(got[keep], want[keep], _tol("f32"))
+
+
+def test_flash_attention_rejects_what_it_cannot_take(dev):
+    q, k, v = _attn_inputs(1, 2, 2, 8, 8, 48, "f32", dev, seed=4)
+    with pytest.raises(ValueError, match="head dim"):
+        gqa_attention_op(q, k, v)
+    q, k, v = _attn_inputs(1, 2, 2, 8, 8, 32, "f32", dev, seed=4)
+    with pytest.raises(TypeError):
+        gqa_attention_op(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="aligned"):
+        gqa_attention_op(q[..., 1:17], k[..., :16], v[..., :16])
+    with pytest.raises(ValueError, match="is on"):
+        gqa_attention_op(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="window"):
+        gqa_attention_op(q, k, v, window=0)
+
+
+@pytest.mark.parametrize("name", ["danube", "stablelm"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_transformer_on_the_card(dev, name, dtype):
+    """REDUCED prefill and three decode steps (the last past the buffer
+    end): kernel path vs plain path on the card, and vs the CPU in f32."""
+    base = {"danube": h2o_danube_1_8b.REDUCED, "stablelm": stablelm_1_6b.REDUCED}[name]
+    cfg = dataclasses.replace(base, dtype=STORAGE[dtype])
+    model = Transformer(cfg, device=dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 40))
+
+    def run(m, device):
+        caches = init_cache(cfg, 3, 48, device=device)
+        before = launch_counts()["flash_attention"]
+        out = [m.prefill(toks, caches)[0]]
+        for i, pos in enumerate((40, 41, 51)):
+            out.append(m.decode_step(caches, toks[:, i : i + 1], pos)[0])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return torch.stack(out), caches, launch_counts()["flash_attention"] - before
+
+    got, got_c, n = run(model, dev)
+    assert n == 4 * cfg.n_layers
+    model.use_kernel = False
+    want, want_c, m = run(model, dev)
+    assert m == 0
+    _close(got, want, _tol(dtype))
+    _close(got_c, want_c, _tol(dtype))
+    if dtype == "f32":
+        cpu = Transformer(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        host, host_c, _ = run(cpu, "cpu")
+        _close(got, host, _tol(dtype))
+        _close(got_c, host_c, _tol(dtype))

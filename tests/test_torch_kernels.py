@@ -15,6 +15,11 @@ import torch
 
 from repro.graph.structures import erdos_renyi
 from repro.kernels.embedding_bag import embedding_bag, embedding_bag_ref as jax_bag_ref
+from repro.kernels.flash_attention import (
+    attention_ref as jax_attention_ref,
+    flash_attention,
+    gqa_attention_op as jax_gqa_attention_op,
+)
 from repro.kernels.lp_blockspmm import lp_round, lp_round_ref as jax_lp_round_ref
 from repro.kernels.segment_reduce import (
     csr_aggregate,
@@ -27,6 +32,12 @@ from repro.kernels.segment_reduce import (
 from repro_torch.graph.structures import EdgeList, PaddedCSR
 from repro_torch.kernels import SOURCES, launch_counts
 from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
+from repro_torch.kernels.flash_attention import (
+    attention_ref,
+    flash_attention_op,
+    gqa_attention_op,
+    ops as flash_ops,
+)
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
     csr_aggregate_op,
@@ -206,6 +217,7 @@ class TestCSRRound:
             "lp_round.cu",
             "csr_aggregate.cu",
             "embedding_bag.cu",
+            "flash_attention.cu",
         )
         assert set(launch_counts()) == {
             "csr_round_residual",
@@ -213,6 +225,7 @@ class TestCSRRound:
             "lp_round",
             "csr_aggregate",
             "embedding_bag",
+            "flash_attention",
         }
 
 
@@ -364,6 +377,130 @@ class TestLPRound:
         assert launch_counts() == before
 
 
+def _attn_inputs(shapes, name, seed):
+    rng = np.random.default_rng(seed)
+    return [_both(rng.standard_normal(sh).astype(np.float32), name) for sh in shapes]
+
+
+class TestFlashAttention:
+    """B6: plain version vs the Pallas kernel (interpret) and the oracle."""
+
+    @pytest.mark.parametrize(
+        "b,h,lq,lk,d,window,q_offset",
+        [  # tests/test_kernels.py::TestFlashAttention::test_sweep
+            (2, 4, 128, 128, 64, None, 0),  # causal prefill
+            (1, 2, 100, 100, 32, 48, 0),  # sliding window
+            (2, 2, 1, 256, 64, None, 255),  # single-token decode
+            (1, 3, 130, 200, 64, None, 70),  # chunked prefill (kv > q)
+            (1, 1, 64, 512, 128, 128, 448),  # windowed decode chunk
+        ],
+    )
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_sweep_against_jax(self, b, h, lq, lk, d, window, q_offset, dtype):
+        (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(
+            [(b, h, lq, d), (b, h, lk, d), (b, h, lk, d)], dtype, seed=lq + lk
+        )
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        got = flash_attention_op(tq, tk, tv, **kw)
+        assert got.dtype == tq.dtype and got.shape == tq.shape
+        pallas = flash_attention(jq, jk, jv, bq=64, bk=64, interpret=True, **kw)
+        np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+        np.testing.assert_allclose(_np(got), _np(jax_attention_ref(jq, jk, jv, **kw)), **_tol(dtype))
+
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    @pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 1), (6, 6)])
+    def test_gqa_grouping(self, hq, hkv, dtype):
+        b, l, d = 1, 64, 32
+        (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(
+            [(b, hq, l, d), (b, hkv, l, d), (b, hkv, l, d)], dtype, seed=hq
+        )
+        got = gqa_attention_op(tq, tk, tv, window=24)
+        want = jax_gqa_attention_op(jq, jk, jv, window=24, use_kernel=True, bq=32, bk=32)
+        np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+        g = hq // hkv
+        oracle = jax_attention_ref(jq, jnp.repeat(jk, g, axis=1), jnp.repeat(jv, g, axis=1),
+                                   window=24)
+        np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+
+    def test_window_equals_full_when_large(self):
+        b, h, l, d = 1, 2, 96, 32
+        (jq, tq), (jk, tk), (jv, tv) = _attn_inputs([(b, h, l, d)] * 3, "f32", seed=7)
+        full = flash_attention_op(tq, tk, tv, window=None)
+        win = flash_attention_op(tq, tk, tv, window=4 * l)
+        np.testing.assert_allclose(full.numpy(), win.numpy(), rtol=1e-6)
+        pallas = flash_attention(jq, jk, jv, window=4 * l, bq=32, bk=32, interpret=True)
+        np.testing.assert_allclose(win.numpy(), _np(pallas), **_tol("f32"))
+
+    def test_sequence_major_layout_is_the_same_function(self):
+        (_, tq), (_, tk), (_, tv) = _attn_inputs([(2, 8, 9, 16), (2, 2, 30, 16), (2, 2, 30, 16)],
+                                                 "f32", seed=8)
+        want = gqa_attention_op(tq, tk, tv, window=5, q_offset=21)
+        got = gqa_attention_op(tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
+                               window=5, q_offset=21, layout="blhd")
+        assert got.shape == (2, 9, 8, 16)
+        assert torch.equal(got.transpose(1, 2), want)
+
+    @pytest.mark.parametrize("window,q_offset", [(2, 10), (None, -2)])
+    def test_rows_without_keys_are_nan_like_the_reference(self, window, q_offset):
+        """repro's oracle and Pallas kernel (interpret) give NaN for a row
+        that sees no key; the port's plain version (and kernel) follow."""
+        (jq, tq), (jk, tk), (jv, tv) = _attn_inputs([(1, 2, 6, 32), (1, 2, 8, 32), (1, 2, 8, 32)],
+                                                    "f32", seed=9)
+        kw = dict(window=window, q_offset=q_offset)
+        got = _np(flash_attention_op(tq, tk, tv, **kw))
+        want = _np(jax_attention_ref(jq, jk, jv, **kw))
+        pallas = _np(flash_attention(jq, jk, jv, bq=8, bk=8, interpret=True, **kw))
+        nan = np.isnan(want)
+        assert nan.any() and np.array_equal(np.isnan(got), nan)
+        assert np.array_equal(np.isnan(pallas), nan)
+        np.testing.assert_allclose(got[~nan], want[~nan], **_tol("f32"))
+
+    def test_op_on_cpu_is_the_plain_version(self):
+        (_, tq), (_, tk), (_, tv) = _attn_inputs([(1, 4, 5, 16), (1, 2, 12, 16), (1, 2, 12, 16)],
+                                                 "f32", seed=10)
+        before = launch_counts()
+        want = attention_ref(tq, tk.repeat_interleave(2, 1), tv.repeat_interleave(2, 1),
+                             window=4, q_offset=7)
+        for use_kernel in (None, True, False):
+            got = gqa_attention_op(tq, tk, tv, window=4, q_offset=7, use_kernel=use_kernel)
+            assert torch.equal(got, want)
+        assert launch_counts() == before
+
+    def test_small_and_decode_shapes_go_to_the_kernel(self, monkeypatch):
+        """``repro``'s op sends Lq·Lk < 128·128 to its oracle; the port's op
+        sends every off-CPU call to the kernel (``meta`` stands in for a card)."""
+        seen = []
+
+        def fake_launch(q, k, v, out, **kw):
+            seen.append((tuple(q.shape), tuple(k.shape), kw))
+            return out
+
+        monkeypatch.setattr(flash_ops, "_launch", fake_launch)
+        meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+        out = gqa_attention_op(meta(2, 32, 1, 80), meta(2, 8, 4096, 80), meta(2, 8, 4096, 80),
+                               window=4096, q_offset=4000)
+        assert out.shape == (2, 32, 1, 80) and out.device.type == "meta"
+        gqa_attention_op(meta(1, 4, 3, 16), meta(1, 2, 3, 16), meta(1, 2, 3, 16))
+        assert [s[:2] for s in seen] == [((2, 1, 32, 80), (2, 4096, 8, 80)),
+                                         ((1, 3, 4, 16), (1, 3, 2, 16))]
+        assert seen[0][2] == dict(causal=True, window=4096, q_offset=4000)
+        assert seen[1][2]["window"] == 0  # no window
+
+    def test_rejects_what_it_cannot_take(self):
+        t = torch.zeros(1, 4, 3, 16)
+        with pytest.raises(ValueError, match="multiple"):
+            gqa_attention_op(t, torch.zeros(1, 3, 3, 16), torch.zeros(1, 3, 3, 16))
+        with pytest.raises(ValueError, match="window"):
+            gqa_attention_op(t, t, t, window=0)
+        with pytest.raises(ValueError, match="layout"):
+            gqa_attention_op(t, t, t, layout="bhdl")
+        with pytest.raises(ValueError, match="equal heads"):
+            flash_attention_op(t, t[:, :2], t[:, :2])
+        meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+        with pytest.raises(ValueError, match="head dim"):
+            gqa_attention_op(meta(1, 2, 3, 48), meta(1, 2, 3, 48), meta(1, 2, 3, 48))
+
+
 class TestWrappersNeverFallBack:
     """A tensor off the CPU goes to the kernel or raises — never the plain
     version.  ``meta`` tensors stand in for a device without a kernel."""
@@ -397,6 +534,11 @@ class TestWrappersNeverFallBack:
         meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             embedding_bag_op(meta(10, 4), meta(3, 2, dt=torch.int32), meta(3, 2))
+
+    def test_flash_attention_raises_off_cpu(self):
+        meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+        with pytest.raises(ValueError, match="unsupported device"):
+            gqa_attention_op(meta(1, 4, 1, 64), meta(1, 2, 8, 64), meta(1, 2, 8, 64))
 
     def test_mixed_devices_raise(self):
         cpu = torch.zeros(6, 6)
