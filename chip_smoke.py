@@ -43,8 +43,12 @@ Phases (each raises on failure, so the script exits non-zero):
     same tolerance; peak device memory with the 5.12 GB table resident;
 10a. ``flash_attention`` vs its plain version at the transformer path's
     shapes (``h2o-danube-1.8b`` prefill_32k and decode_32k layer launches
-    and an 8k f32 one, a ``stablelm-1.6b`` 4k one), with timings, bounds
-    and ``scaled_dot_product_attention`` as the library yardstick;
+    and an 8k f32 one, a ``stablelm-1.6b`` 4k one), bf16 held at
+    ``rtol=2e-2, atol=1e-5`` (one unit in the last place); at each shape
+    the same gate must reject the kernel given planted faults (window one
+    short, the last 64 live keys dropped, KV heads of the next group);
+    with timings, bounds and ``scaled_dot_product_attention`` as the
+    library yardstick;
 10b. ``h2o-danube-1.8b`` at full width in f32: prefill of 8,192 tokens and
     16 decode steps, kernel path vs plain path at ``rtol=2e-4, atol=5e-4``;
 10c. ``h2o-danube-1.8b`` ``FULL`` serving in bf16 on the kernel path:
@@ -81,6 +85,10 @@ PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12  # HBM3
 F32_TOL = dict(rtol=2e-4, atol=5e-4)  # tests/test_kernels.py::_tol
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# B6 vs its plain version in bf16: both score, softmax and sum in f32 and
+# round only the output, so they differ by at most one unit in the last
+# place (2**-7 of the value); atol covers f32 summation order near zero.
+FLASH_BF16_TOL = dict(rtol=2e-2, atol=1e-5)
 AGREE_TOL = 5e-3  # the agree_dense gate (DESIGN.md §15.3)
 TIE_EPS = 1e-5
 N_DRUGS_CHECKED = 16
@@ -225,22 +233,6 @@ def live_pairs(np, lq, lk, q_offset, window) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def plain_attention(torch, gqa_attention_op, q, k, v, window, q_offset, chunk=2048):
-    """B6's plain version over query chunks, each against the keys its rows
-    can see (positions shifted, so the masks are unchanged): a 32k prompt's
-    whole (Lq, Lk) score matrix does not fit the card."""
-    lq, lk = q.shape[1], k.shape[1]
-    outs = []
-    for a in range(0, lq, chunk):
-        e = min(lq, a + chunk)
-        hi = min(lk, q_offset + e)
-        lo = max(0, q_offset + a - window + 1) if window else 0
-        outs.append(gqa_attention_op(
-            q[:, a:e], k[:, lo:hi], v[:, lo:hi], window=window, q_offset=q_offset + a - lo,
-            use_kernel=False, layout="blhd"))
-    return torch.cat(outs, dim=1)
-
-
 def device_kernel_names(torch, fn) -> list:
     """Names of the device kernels one call of ``fn`` runs, recorded in the
     second of two profiled steps (``trace_solve``'s warm-up: the first
@@ -276,20 +268,49 @@ def sdpa_backend(names) -> str:
     return "math"
 
 
+def gate_rejects_faults(torch, tag, want, tol, q, k, v, window, q_offset) -> None:
+    """The kernel given planted faults must fail the gate it just passed:
+    the window one key short (where the window binds), the last 64 live
+    keys dropped, and each query head reading the next group's KV head.
+    Each stands for a kernel bug of that kind (a wrong window edge, a
+    skipped key tile, a GQA index mix-up)."""
+    from repro_torch.kernels.flash_attention import gqa_attention_op
+
+    lq, lk, hkv = q.shape[1], k.shape[1], k.shape[2]
+    live = min(lk, q_offset + lq)
+    faults = [("last 64 live keys dropped", k[:, :live - 64], v[:, :live - 64], window)]
+    if window and q_offset + lq > window:
+        faults.append(("window - 1", k, v, window - 1))
+    if hkv > 1:
+        faults.append(("KV heads of the next group", torch.roll(k, 1, dims=2),
+                       torch.roll(v, 1, dims=2), window))
+    for name, kf, vf, wf in faults:
+        got = gqa_attention_op(q, kf, vf, window=wf, q_offset=q_offset, layout="blhd")
+        g, w = got.float(), want.float()
+        bad = ~torch.isclose(g, w, **tol)
+        err = float((g - w).abs().max())
+        if not bad.any():
+            fail(f"{tag}: the gate passed a planted fault ({name}), max|Δ|={err}")
+        log(f"    planted fault '{name}': rejected, max|Δ| = {err:.3e}, "
+            f"{int(bad.sum())} of {bad.numel()} values outside the gate")
+        del got, g, w, bad
+
+
 def flash_kernel_phase(torch, np, dev) -> dict:
     """B6 against its plain version at the serving path's shapes, with
     CUDA-event times, the bound and one ``scaled_dot_product_attention``
     call as the library yardstick (timed only; the port never calls it)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from repro_torch.kernels.flash_attention import gqa_attention_op
+    from repro_torch.kernels.flash_attention import gqa_attention_op, gqa_attention_ref
 
     fused = [getattr(SDPBackend, n) for n in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
                                               "CUDNN_ATTENTION") if hasattr(SDPBackend, n)]
     gen = torch.Generator(device=dev).manual_seed(14)
     rows = []
     for label, b, hq, hkv, lq, lk, d, window, q_offset, dt in FLASH_SHAPES:
-        dtype, tol = ((torch.bfloat16, BF16_TOL) if dt == "bf16" else (torch.float32, F32_TOL))
+        dtype, tol = ((torch.bfloat16, FLASH_BF16_TOL) if dt == "bf16"
+                      else (torch.float32, F32_TOL))
         q = torch.randn((b, lq, hq, d), generator=gen, device=dev).to(dtype)
         kv = torch.randn((2, b, lk, hkv, d), generator=gen, device=dev).to(dtype)
         k, v = kv[0], kv[1]  # cache slices, as the model passes them
@@ -299,14 +320,18 @@ def flash_kernel_phase(torch, np, dev) -> dict:
         def kern():
             return gqa_attention_op(q, k, v, window=window, q_offset=q_offset, layout="blhd")
 
-        def plain():
-            return plain_attention(torch, gqa_attention_op, q, k, v, window, q_offset)
+        def plain():  # query chunks: a 32k prompt's whole score matrix does not fit
+            return gqa_attention_ref(q, k, v, window=window, q_offset=q_offset,
+                                     layout="blhd", chunk=2048)
 
         out_k = kern()
         torch.cuda.synchronize()
-        err = check_close(np, tag, out_k, plain(), tol)
+        want = plain()
+        err = check_close(np, tag, out_k, want, tol)
         if not torch.equal(out_k, kern()):
             fail(f"{tag}: two launches gave different bytes")
+        gate_rejects_faults(torch, tag, want, tol, q, k, v, window, q_offset)
+        del want
         # the library yardstick on (B, H, L, D) views, KV heads repeated
         g = hq // hkv
         qh = q.transpose(1, 2)
@@ -337,8 +362,9 @@ def flash_kernel_phase(torch, np, dev) -> dict:
         except RuntimeError as exc:  # no fused backend takes this call
             lib_out, backend = None, f"unavailable ({str(exc).splitlines()[0][:120]})"
         if lib_out is not None:
+            # SDPA's fused kernels round P to bf16: the looser bf16 gate
             check_close(np, tag + " vs scaled_dot_product_attention", out_k,
-                        lib_out.transpose(1, 2), tol)
+                        lib_out.transpose(1, 2), BF16_TOL if dt == "bf16" else tol)
         del out_k, lib_out
         ms = cuda_ms(torch, kern, warmup=1, iters=3 if heavy else 20)
         plain_ms = cuda_ms(torch, plain, warmup=1, iters=2 if heavy else 5)

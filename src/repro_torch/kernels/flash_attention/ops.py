@@ -1,7 +1,7 @@
 """Public wrappers: flash attention, with grouped-query head handling.
 
-A CPU tensor takes the plain version (:mod:`.ref`, the KV heads repeated
-to the query heads); a CUDA tensor launches the hand-written kernel
+A CPU tensor takes the plain version (:func:`.ref.gqa_attention_ref`, the
+KV heads repeated to the query heads); a CUDA tensor launches the hand-written kernel
 (``csrc/flash_attention.cu``) or raises — there is no fallback from the
 card to the plain version, and no size below which the card takes it
 (``repro``'s op sends ``Lq·Lk < 128·128`` to its oracle, a cost rule of
@@ -30,7 +30,7 @@ from repro_torch.kernels.common import (
     on_cpu,
     stream_handle,
 )
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
 
 SOURCE = "flash_attention.cu"
 LAUNCHES = LaunchCounter("flash_attention")
@@ -48,19 +48,6 @@ def _window_arg(window: Optional[int]) -> int:
     if int(window) < 1:
         raise ValueError(f"window must be a positive number of keys, got {window}")
     return int(window)
-
-
-def _plain(q, k, v, *, causal, window, q_offset):
-    """The plain version on sequence-major ``(B, L, H, D)`` views."""
-    group = q.shape[2] // k.shape[2]
-    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-    if group > 1:
-        kh = kh.repeat_interleave(group, dim=1)
-        vh = vh.repeat_interleave(group, dim=1)
-    out = attention_ref(
-        q.transpose(1, 2), kh, vh, causal=causal, window=window, q_offset=q_offset
-    )
-    return out.transpose(1, 2)
 
 
 def _check_operand(name, t, dev, dtype):
@@ -138,7 +125,6 @@ def gqa_attention_op(
     causal: bool = True,
     window: Optional[int] = None,
     q_offset: int = 0,
-    use_kernel: Optional[bool] = None,
     layout: str = "bhld",
 ) -> torch.Tensor:
     """Grouped-query attention, out in ``q.dtype``.
@@ -146,9 +132,6 @@ def gqa_attention_op(
     ``layout="bhld"``: q ``(B, Hq, Lq, D)``, k and v ``(B, Hkv, Lk, D)``;
     ``"blhd"``: q ``(B, Lq, Hq, D)``, k and v ``(B, Lk, Hkv, D)``; the
     output has q's layout.  ``Hq`` must be a multiple of ``Hkv``.
-    ``use_kernel=False`` takes the plain version on any device (the
-    yardstick path); ``None`` or ``True`` launch the kernel for CUDA
-    tensors.
     """
     if layout not in _LAYOUTS:
         raise ValueError(f"layout must be one of {_LAYOUTS}, got {layout!r}")
@@ -164,9 +147,9 @@ def gqa_attention_op(
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
     win = _window_arg(window)
     q_offset = int(q_offset)
-    if use_kernel is False or on_cpu(q, k, v):
-        out = _plain(qs, ks, vs, causal=causal, window=window, q_offset=q_offset)
-        return out if seq_major else out.transpose(1, 2)
+    if on_cpu(q, k, v):
+        return gqa_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                 layout=layout)
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     if seq_major:

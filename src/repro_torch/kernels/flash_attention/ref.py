@@ -5,6 +5,10 @@ absolute positions, the port of ``repro``'s ``attention_ref``.  The CPU
 tests hold it against ``repro``'s oracle and Pallas kernel; on the card
 it is what the CUDA kernel is held to.  A row with no valid key gives NaN
 (``-inf - -inf`` in the max-subtracted exponent), as ``repro``'s does.
+
+:func:`gqa_attention_ref` is the one plain grouped-query attention of the
+port: the CPU route of the kernel's wrapper, the model's plain route and
+the yardstick the kernel is held to on the card.
 """
 
 from __future__ import annotations
@@ -42,4 +46,51 @@ def attention_ref(
     return out.to(q.dtype)
 
 
-__all__ = ["attention_ref"]
+def gqa_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    layout: str = "bhld",
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`attention_ref` with grouped-query heads: KV head ``h // group``
+    serves query head ``h``.
+
+    ``layout="bhld"``: q ``(B, Hq, Lq, D)``, k and v ``(B, Hkv, Lk, D)``;
+    ``"blhd"``: the sequence-major ``(B, L, H, D)``.  The output has q's
+    layout and dtype.  ``chunk`` splits the queries into chunks of that
+    many rows, each scored only against the keys its rows can see (both
+    positions shifted, so the masks are unchanged): a long prompt's whole
+    score matrix need not fit in memory.  The KV heads are repeated per
+    chunk, over those keys only.  Without ``chunk`` it is
+    :func:`attention_ref` on the repeated heads, bit for bit.
+    """
+    if layout == "blhd":
+        t = lambda x: x.transpose(1, 2)  # noqa: E731
+        out = gqa_attention_ref(t(q), t(k), t(v), causal=causal, window=window,
+                                q_offset=q_offset, chunk=chunk)
+        return t(out)
+    lq, lk = q.shape[2], k.shape[2]
+    group = q.shape[1] // k.shape[1]
+    step = max(1, chunk or lq)
+    outs = []
+    for a in range(0, max(lq, 1), step):
+        e = min(lq, a + step)
+        lo = max(0, q_offset + a - window + 1) if chunk and window else 0
+        hi = min(lk, q_offset + e) if chunk and causal else lk
+        if hi <= lo:  # no row of the chunk sees a key: keep them all, the mask gives NaN
+            lo, hi = 0, lk
+        kc, vc = k[:, :, lo:hi], v[:, :, lo:hi]
+        if group > 1:
+            kc = kc.repeat_interleave(group, dim=1)
+            vc = vc.repeat_interleave(group, dim=1)
+        outs.append(attention_ref(q[:, :, a:e], kc, vc, causal=causal, window=window,
+                                  q_offset=q_offset + a - lo))
+    return torch.cat(outs, dim=2)
+
+
+__all__ = ["attention_ref", "gqa_attention_ref"]

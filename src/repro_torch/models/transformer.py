@@ -18,9 +18,14 @@ Attention takes one of two routes (``Transformer.use_kernel``):
   model's ``(B, L, H, D)`` activations and ``(B, S, H_kv, D)`` cache
   slices, KV heads read in place) — on the card the CUDA kernel; on the
   CPU its plain version;
-* ``False``: ``repro``'s plain jnp path, ported — KV heads repeated, f32
-  scores masked to ``-1e30`` and softmaxed, queries in chunks of
-  ``attn_chunk`` (the yardstick path on the card).
+* ``False``: B6's plain version
+  (:func:`~repro_torch.kernels.flash_attention.gqa_attention_ref`), f32
+  scores and softmax over queries in chunks of ``attn_chunk``, each
+  against the keys its rows can see, KV heads repeated (the yardstick
+  path on the card).  It stands for ``repro``'s plain path
+  ``_chunked_softmax_attn``; that path masks to ``-1e30`` and this one to
+  ``-inf``, the same function on every row that sees a key (every row of
+  this model does).
 
 ``repro`` itself never reaches its Pallas kernel on this path; its
 ``_chunked_softmax_attn`` docstring names the kernel for serving, and the
@@ -49,7 +54,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.flash_attention import gqa_attention_op
+from repro_torch.kernels.flash_attention import gqa_attention_op, gqa_attention_ref
 from repro_torch.models.common import apply_rope, dense_init, embed_init, rms_norm, swiglu
 
 _NOT_PORTED = "is not ported yet (ROADMAP A.12: MoE FFN, MLA attention)"
@@ -98,7 +103,8 @@ class TransformerConfig:
     remat: bool = True  # a training switch of the reference; unused when serving
     mla_absorbed: bool = True
     # query-chunked plain attention: caps the live (b, h, chunk, Lk) f32
-    # score tensor; used when Lq > attn_chunk and Lq % attn_chunk == 0
+    # score tensor (repro chunks only when Lq % attn_chunk == 0, the port
+    # whenever Lq > attn_chunk; the result is the same)
     attn_chunk: Optional[int] = 1024
     ce_chunk: Optional[int] = None  # a training switch of the reference
 
@@ -208,41 +214,6 @@ class TransformerLayer(nn.Module):
 
 
 # ------------------------------------------------------------- attention
-def _mask_for(l: int, lk: int, q_pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
-    """(l, lk) bool mask from absolute query positions."""
-    k_pos = torch.arange(lk, device=q_pos.device)
-    m = k_pos[None, :] <= q_pos[:, None]
-    if window is not None:
-        m &= k_pos[None, :] > q_pos[:, None] - window
-    return m
-
-
-def _chunked_softmax_attn(cfg, q, k, v, q_pos, scale):
-    """The plain path: masked softmax attention with query chunking.
-
-    q ``(b, l, h, e)``, k and v ``(b, m, h, e)`` (KV heads already
-    repeated); f32 scores ``(b, h, c, m)`` per chunk of ``attn_chunk``
-    queries, masked to ``-1e30``; returns ``(b, l, h, e)`` in f32.
-    """
-    kf, vf = k.float(), v.float()
-    lk = k.shape[1]
-
-    def score(qc, q_pos_c):
-        sc = torch.einsum("bchx,bmhx->bhcm", qc.float(), kf) * scale
-        mask = _mask_for(qc.shape[1], lk, q_pos_c, cfg.window)
-        sc = sc.masked_fill(~mask[None, None], -1e30)
-        p = torch.softmax(sc, dim=-1)
-        return torch.einsum("bhcm,bmhx->bchx", p, vf)
-
-    l = q.shape[1]
-    chunk = cfg.attn_chunk
-    if not chunk or l <= chunk or l % chunk:
-        return score(q, q_pos)
-    return torch.cat(
-        [score(q[:, i : i + chunk], q_pos[i : i + chunk]) for i in range(0, l, chunk)], dim=1
-    )
-
-
 def _write_start(cache_pos: int, l: int, s: int) -> int:
     """Where ``jax.lax.dynamic_update_slice`` writes ``l`` rows into ``s``
     slots starting at ``cache_pos``: a negative start counts from the end
@@ -279,17 +250,11 @@ def _gqa_attention(
         k_full, v_full = cache[0], cache[1]
     else:
         k_full, v_full = k, v
+    kw = dict(causal=True, window=cfg.window, q_offset=int(cache_pos), layout="blhd")
     if use_kernel:
-        o = gqa_attention_op(
-            q, k_full, v_full, causal=True, window=cfg.window, q_offset=int(cache_pos),
-            layout="blhd",
-        )
+        o = gqa_attention_op(q, k_full, v_full, **kw)
     else:
-        group = hq // hkv
-        if group > 1:
-            k_full = k_full.repeat_interleave(group, dim=2)
-            v_full = v_full.repeat_interleave(group, dim=2)
-        o = _chunked_softmax_attn(cfg, q, k_full, v_full, q_pos, 1.0 / (hd**0.5)).to(x.dtype)
+        o = gqa_attention_ref(q, k_full, v_full, chunk=cfg.attn_chunk, **kw)
     return o.reshape(b, l, hq * hd) @ lp.wo
 
 

@@ -5,8 +5,9 @@ Run on a machine with a card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel is held against its plain PyTorch version on the same CUDA
-inputs at the tolerances of ``tests/test_kernels.py::_tol`` (the plain
-versions are held against the JAX reference by the CPU tests), and the
+inputs at the tolerances of ``tests/test_kernels.py::_tol``, B6 in bf16
+at one ulp (``_flash_tol``; the plain versions are held against the JAX
+reference by the CPU tests), and the
 engines that launch them against the torch-op engines.
 """
 
@@ -23,7 +24,7 @@ from repro_torch.data.recsys import CTRDataConfig, sample_ctr_batch
 from repro_torch.engine import make_engine
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
-from repro_torch.kernels.flash_attention import attention_ref, gqa_attention_op
+from repro_torch.kernels.flash_attention import gqa_attention_op, gqa_attention_ref
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
     csr_aggregate_op,
@@ -421,9 +422,12 @@ def _attn_inputs(b, hq, hkv, lq, lk, d, dtype, dev, seed):
             cast(rng.standard_normal((b, hkv, lk, d))))
 
 
-def _attn_plain(q, k, v, **kw):
-    g = q.shape[1] // k.shape[1]
-    return attention_ref(q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), **kw)
+def _flash_tol(name):
+    """B6 vs its plain version: both score, softmax and sum in f32 and round
+    only the output, so two bf16 outputs differ by at most one unit in the
+    last place (2**-7 of the value); ``atol`` covers f32 summation order
+    near zero only."""
+    return dict(rtol=2e-2, atol=1e-5) if name == "bf16" else _tol(name)
 
 
 @pytest.mark.parametrize(
@@ -450,7 +454,7 @@ def test_flash_attention_kernel_matches_plain(dev, b, hq, hkv, lq, lk, d, window
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
-    _close(got, _attn_plain(q, k, v, **kw), _tol(dtype))
+    _close(got, gqa_attention_ref(q, k, v, **kw), _flash_tol(dtype))
     assert torch.equal(got, gqa_attention_op(q, k, v, **kw))
 
 
@@ -462,16 +466,15 @@ def test_flash_attention_reads_the_cache_layout_in_place(dev, dtype):
     cache = torch.randn((2, b, s, hkv, d), device=dev).to(STORAGE[dtype])
     qs = q.transpose(1, 2)  # (B, Lq, Hq, D), not contiguous
     got = gqa_attention_op(qs, cache[0], cache[1], window=16, q_offset=40, layout="blhd")
-    want = _attn_plain(q, cache[0].transpose(1, 2), cache[1].transpose(1, 2), window=16,
-                       q_offset=40)
-    _close(got.transpose(1, 2), want, _tol(dtype))
+    want = gqa_attention_ref(qs, cache[0], cache[1], window=16, q_offset=40, layout="blhd")
+    _close(got, want, _flash_tol(dtype))
 
 
 def test_flash_attention_rows_without_keys_are_nan_like_the_plain_version(dev):
     q, k, v = _attn_inputs(1, 2, 2, 6, 8, 32, "f32", dev, seed=3)
     for kw in (dict(window=2, q_offset=10), dict(q_offset=-2)):
         got = gqa_attention_op(q, k, v, **kw)
-        want = _attn_plain(q, k, v, **kw)
+        want = gqa_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(want).any()
         keep = ~torch.isnan(want)

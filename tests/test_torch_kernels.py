@@ -36,6 +36,7 @@ from repro_torch.kernels.flash_attention import (
     attention_ref,
     flash_attention_op,
     gqa_attention_op,
+    gqa_attention_ref,
     ops as flash_ops,
 )
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
@@ -461,10 +462,39 @@ class TestFlashAttention:
         before = launch_counts()
         want = attention_ref(tq, tk.repeat_interleave(2, 1), tv.repeat_interleave(2, 1),
                              window=4, q_offset=7)
-        for use_kernel in (None, True, False):
-            got = gqa_attention_op(tq, tk, tv, window=4, q_offset=7, use_kernel=use_kernel)
-            assert torch.equal(got, want)
+        assert torch.equal(gqa_attention_op(tq, tk, tv, window=4, q_offset=7), want)
         assert launch_counts() == before
+
+    @pytest.mark.parametrize(
+        "lq,lk,window,q_offset,causal",
+        [
+            (40, 40, None, 0, True),  # causal prefill
+            (40, 40, 6, 0, True),  # the window slices each chunk's keys
+            (7, 60, 16, 50, True),  # a decode chunk past the window
+            (9, 30, None, 21, True),  # kv longer than q
+            (12, 20, 5, 3, False),  # window without the causal edge
+            (6, 8, 2, 10, True),  # rows without keys: NaN
+            (6, 8, None, -2, True),
+            (6, 8, 1, 20, True),  # a whole chunk without keys
+        ],
+    )
+    @pytest.mark.parametrize("chunk", [1, 4, 16])
+    def test_chunked_plain_version_is_the_oracle(self, lq, lk, window, q_offset, causal, chunk):
+        """Chunks scored against the keys their rows see give the oracle's
+        output on every row, the NaN rows included."""
+        (_, tq), (_, tk), (_, tv) = _attn_inputs(
+            [(2, 8, lq, 16), (2, 2, lk, 16), (2, 2, lk, 16)], "f32", seed=lq * lk + chunk
+        )
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        want = attention_ref(tq, tk.repeat_interleave(4, 1), tv.repeat_interleave(4, 1), **kw)
+        got = gqa_attention_ref(tq, tk, tv, chunk=chunk, **kw)
+        np.testing.assert_array_equal(torch.isnan(got).numpy(), torch.isnan(want).numpy())
+        keep = ~torch.isnan(want)
+        np.testing.assert_allclose(got[keep].numpy(), want[keep].numpy(), rtol=1e-6, atol=1e-6)
+        seq = gqa_attention_ref(tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
+                                chunk=chunk, layout="blhd", **kw)
+        assert torch.equal(seq.transpose(1, 2).isnan(), got.isnan())
+        assert torch.equal(seq.transpose(1, 2)[keep], got[keep])
 
     def test_small_and_decode_shapes_go_to_the_kernel(self, monkeypatch):
         """``repro``'s op sends Lq·Lk < 128·128 to its oracle; the port's op

@@ -6,7 +6,7 @@ drawn with numpy.  Prefill and decode logits and the KV caches must agree
 at f32 ``rtol=2e-4, atol=5e-4`` (bf16 ``2e-2``), the tolerances of
 ``tests/test_kernels.py::_tol``, on both attention routes of the port:
 ``use_kernel=True`` (B6's wrapper, which on the CPU runs its plain
-version) and ``use_kernel=False`` (the ported chunked jnp path).  The
+version) and ``use_kernel=False`` (its chunked plain version).  The
 CUDA kernel itself runs in ``test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 
