@@ -9,7 +9,8 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
 2. build: every CUDA kernel of the port, one ``nvcc`` per source, in
-   parallel; prints the build time and the ``-Xptxas -v`` report;
+   parallel; prints the build time (in all and per source) and the
+   ``-Xptxas -v`` report;
 3. kernels vs their plain PyTorch versions at their paths' shapes
    (``powerlaw`` scenario, scale 1.0, seed 0: 4,396 nodes, S = 4,396
    seed columns), with CUDA-event timings, bounds and library yardsticks:
@@ -47,8 +48,11 @@ Phases (each raises on failure, so the script exits non-zero):
     ``rtol=2e-2, atol=1e-5`` (one unit in the last place); at each shape
     the same gate must reject the kernel given planted faults (window one
     short, the last 64 live keys dropped, KV heads of the next group);
-    with timings, bounds and ``scaled_dot_product_attention`` as the
-    library yardstick;
+    each row names the kernel's regime (bf16 prefill or decode on the
+    tensor cores, f32 on the CUDA cores), with timings, bounds, the rate
+    of live pairs and of issued tensor-core work, and
+    ``scaled_dot_product_attention`` as the library yardstick (its
+    backend named, and each fused backend also timed alone);
 10b. ``h2o-danube-1.8b`` at full width in f32: prefill of 8,192 tokens and
     16 decode steps, kernel path vs plain path at ``rtol=2e-4, atol=5e-4``;
 10c. ``h2o-danube-1.8b`` ``FULL`` serving in bf16 on the kernel path:
@@ -256,16 +260,46 @@ def device_kernel_names(torch, fn) -> list:
                    and not e.name.startswith("ProfilerStep")})
 
 
-def sdpa_backend(names) -> str:
-    """The SDPA backend from its kernels' names (cuDNN's contain "flash" too)."""
-    if not names:
-        return "backend not recorded by the profiler"
+def sdpa_backend(torch, names, args) -> str:
+    """The SDPA backend from its kernels' names (cuDNN's contain "flash"
+    too), else, where the profiler recorded no kernel, from PyTorch's own
+    dispatch (``torch._fused_sdp_choice`` under the same ``sdpa_kernel``)."""
     joined = " ".join(names).lower()
     for key, label in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
                        ("efficient", "efficient")):
         if key in joined:
             return label
-    return "math"
+    if names:
+        return "math"
+    from torch.nn.attention import SDPBackend
+
+    try:
+        choice = SDPBackend(torch._fused_sdp_choice(*args[:3], attn_mask=args[3],
+                                                    is_causal=args[4]))
+    except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
+        return f"not recorded by the profiler ({type(exc).__name__})"
+    return {"CUDNN_ATTENTION": "cudnn", "FLASH_ATTENTION": "flash",
+            "EFFICIENT_ATTENTION": "efficient"}.get(choice.name, choice.name.lower()) + (
+        ", from dispatch: the profiler recorded no kernel")
+
+
+# B6's tensor-core tiles, as csrc/flash_attention.cu sets them (kPreGroups,
+# kDecWarps, kDecKeys): rows per block and keys per stage of each regime
+B6_TILES = {"prefill": (192, 64), "decode": (16, 128)}
+
+
+def b6_mma_flops(np, regime, lq, lk, group, d, window, q_offset) -> float:
+    """Tensor-core operations one (batch, KV head) of a bf16 launch issues:
+    every row of every tile against every key of every stage it visits,
+    2 D for Q.K^T and 2 x 2 D for P_hi.V and P_lo.V per (row, key)."""
+    bq, bk = B6_TILES[regime]
+    rows = lq * group
+    row0 = np.arange(0, rows, bq, dtype=np.int64)
+    last = np.minimum(rows, row0 + bq) - 1
+    k_end = np.minimum(lk, q_offset + last // group + 1)
+    k_begin = np.maximum(0, q_offset + row0 // group - window + 1) if window else 0 * row0
+    stages = np.where(k_end > k_begin, (k_end - k_begin + bk - 1) // bk, 0)
+    return float(stages.sum()) * bq * bk * 6.0 * d
 
 
 def gate_rejects_faults(torch, tag, want, tol, q, k, v, window, q_offset) -> None:
@@ -302,7 +336,7 @@ def flash_kernel_phase(torch, np, dev) -> dict:
     call as the library yardstick (timed only; the port never calls it)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from repro_torch.kernels.flash_attention import gqa_attention_op, gqa_attention_ref
+    from repro_torch.kernels.flash_attention import gqa_attention_op, gqa_attention_ref, regime
 
     fused = [getattr(SDPBackend, n) for n in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
                                               "CUDNN_ATTENTION") if hasattr(SDPBackend, n)]
@@ -347,18 +381,20 @@ def flash_kernel_phase(torch, np, dev) -> dict:
                 mask &= kp > qp - window
             causal = False
 
-        def lib():
-            with sdpa_kernel(fused):
+        def lib(backends=fused):
+            with sdpa_kernel(backends):
                 return torch.nn.functional.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask, is_causal=causal)
 
         heavy = lq * lk >= 2**26
+        reps = 3 if heavy else 20
         try:
             lib_out = lib()
             torch.cuda.synchronize()
             names = device_kernel_names(torch, lib)
-            backend = sdpa_backend(names)
-            log(f"    SDPA kernels: {'; '.join(n[:90] for n in names)}")
+            with sdpa_kernel(fused):
+                backend = sdpa_backend(torch, names, (qh, kh, vh, mask, causal))
+            log(f"    SDPA kernels: {'; '.join(n[:90] for n in names) or 'none recorded'}")
         except RuntimeError as exc:  # no fused backend takes this call
             lib_out, backend = None, f"unavailable ({str(exc).splitlines()[0][:120]})"
         if lib_out is not None:
@@ -366,9 +402,17 @@ def flash_kernel_phase(torch, np, dev) -> dict:
             check_close(np, tag + " vs scaled_dot_product_attention", out_k,
                         lib_out.transpose(1, 2), BF16_TOL if dt == "bf16" else tol)
         del out_k, lib_out
-        ms = cuda_ms(torch, kern, warmup=1, iters=3 if heavy else 20)
+        each = {}  # every fused backend alone
+        for bk in fused:
+            try:
+                lib([bk])
+                each[bk.name] = f"{cuda_ms(torch, lambda: lib([bk]), warmup=1, iters=reps):.4f} ms"
+            except RuntimeError as exc:
+                each[bk.name] = f"unavailable ({str(exc).splitlines()[0][:60]})"
+        log("    SDPA by backend alone: " + "; ".join(f"{n} {t}" for n, t in each.items()))
+        ms = cuda_ms(torch, kern, warmup=1, iters=reps)
         plain_ms = cuda_ms(torch, plain, warmup=1, iters=2 if heavy else 5)
-        lib_ms = (cuda_ms(torch, lib, warmup=1, iters=3 if heavy else 20)
+        lib_ms = (cuda_ms(torch, lib, warmup=1, iters=reps)
                   if not backend.startswith("unavailable") else None)
         pairs = live_pairs(np, lq, lk, q_offset, window) * b * hq
         esize = 2 if dt == "bf16" else 4
@@ -376,10 +420,16 @@ def flash_kernel_phase(torch, np, dev) -> dict:
         nbytes = esize * d * (2.0 * b * lq * hq + 2.0 * b * read_keys * hkv)
         bms, by = bound(4.0 * d * pairs, nbytes,
                         PEAK_BF16_FLOPS if dt == "bf16" else PEAK_F32_FLOPS)
-        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA ({backend}) "
+        reg = regime(dtype, lq * g)
+        mma = ", CUDA cores"
+        if dt == "bf16":
+            issued = b * hkv * b6_mma_flops(np, reg, lq, lk, g, d, window, q_offset)
+            mma = f", tensor cores {issued / ms / 1e9:.2f} TFLOP/s issued"
+        log(f"    regime {reg}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA ({backend}) "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bms:.4f} ms ({by}); "
-            f"{pairs / 1e6:.1f} M live (q, k) pairs, {4.0 * d * pairs / ms / 1e9:.2f} TFLOP/s")
-        rows.append(dict(label=label, dtype=dt, err=err, ms=ms, plain_ms=plain_ms,
+            f"{pairs / 1e6:.1f} M live (q, k) pairs, {4.0 * d * pairs / ms / 1e9:.2f} TFLOP/s "
+            f"of live pairs{mma}; {nbytes / ms / 1e6:.1f} GB/s")
+        rows.append(dict(label=label, dtype=dt, regime=reg, err=err, ms=ms, plain_ms=plain_ms,
                          lib_ms=lib_ms, backend=backend, bound_ms=bms, by=by))
         del q, kv, k, v, kh, vh, mask
         torch.cuda.empty_cache()
@@ -638,6 +688,9 @@ def main() -> int:
     libs = build_all(list(SOURCES))
     log(f"  built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s "
         "(one nvcc per source, in parallel)")
+    log("  nvcc wall per source: " + ", ".join(
+        f"{src} {f'{lib.seconds:.1f} s' if lib.seconds else 'built earlier'}"
+        for src, lib in libs.items()))
     for src, lib in libs.items():
         for line in lib.log.splitlines():
             if "ptxas info" in line and ("registers" in line or "Compiling" in line

@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -73,9 +75,10 @@ class LaunchCounter:
 class BuiltLibrary:
     """One compiled kernel library plus what ``nvcc`` said building it."""
 
-    def __init__(self, path: Path, log: str):
+    def __init__(self, path: Path, log: str, seconds: float = 0.0):
         self.path = path
         self.log = log  # -Xptxas -v register / shared-memory report
+        self.seconds = seconds  # this build's nvcc wall time (0: an earlier build's)
         self.cdll = ctypes.CDLL(str(path))
 
 
@@ -110,6 +113,7 @@ def build_all(sources: List[str]) -> Dict[str, BuiltLibrary]:
         todo = [s for s in sources if s not in _LIBS]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
+        t0 = time.perf_counter()
         for src in todo:
             out = _target(src)
             if out.exists():
@@ -128,15 +132,22 @@ def build_all(sources: List[str]) -> Dict[str, BuiltLibrary]:
                 tmp,
                 out,
             )
+
+        def finish(src):  # one thread per nvcc, so each build's own wall is timed
+            log, _ = procs[src][0].communicate()
+            return log, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(max_workers=max(1, len(procs))) as pool:
+            done = dict(zip(procs, pool.map(finish, procs)))
         failed = []
         for src, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
+            log, seconds = done[src]
             if proc.returncode != 0:
                 failed.append(f"{src}:\n{log}")
                 continue
             out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
-            _LIBS[src] = BuiltLibrary(out, log)
+            _LIBS[src] = BuiltLibrary(out, log, seconds)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         return {s: _LIBS[s] for s in sources}

@@ -2,7 +2,8 @@
 
 A CPU tensor takes the plain version (:func:`.ref.gqa_attention_ref`, the
 KV heads repeated to the query heads); a CUDA tensor launches the hand-written kernel
-(``csrc/flash_attention.cu``) or raises — there is no fallback from the
+(``csrc/flash_attention.cu``, in the regime :func:`regime` picks: f32 on the
+CUDA cores, bf16 prefill or decode on the tensor cores) or raises — there is no fallback from the
 card to the plain version, and no size below which the card takes it
 (``repro``'s op sends ``Lq·Lk < 128·128`` to its oracle, a cost rule of
 Pallas interpret mode).  The kernel reads the KV head ``h // group`` of
@@ -40,6 +41,21 @@ _STORAGE = (torch.float32, torch.bfloat16)
 _VEC = 8  # the kernel reads 8-element vectors: strides and bases aligned to them
 _MAX_GRID = 65535  # grid.y (KV heads) and grid.z (batch)
 _LAYOUTS = ("bhld", "blhd")
+#: the kernel's regimes, numbered as ``flash_attention_launch`` takes them
+REGIMES = ("f32", "prefill", "decode")
+#: a (batch, KV head) with at most this many rows (positions x group) takes
+#: the bf16 decode tile: one 16-row tile, the keys split across its warps
+DECODE_ROWS = 16
+
+
+def regime(dtype: torch.dtype, rows_per_kv_head: int) -> str:
+    """The kernel's regime for a launch: ``"f32"`` on the CUDA cores, or in
+    bf16 on the tensor cores ``"decode"`` (at most :data:`DECODE_ROWS` rows
+    per (batch, KV head), bound by bytes) or ``"prefill"`` (bound by
+    operations)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "decode" if rows_per_kv_head <= DECODE_ROWS else "prefill"
 
 
 def _window_arg(window: Optional[int]) -> int:
@@ -108,7 +124,7 @@ def _launch(q, k, v, out, *, causal, window, q_offset):
         window,
         q_offset,
         1.0 / (d**0.5),
-        int(q.dtype == torch.bfloat16),
+        REGIMES.index(regime(q.dtype, lq * group)),
         dev.index,
         stream_handle(dev),
     )
@@ -178,4 +194,5 @@ def flash_attention_op(
     return gqa_attention_op(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "SOURCE", "flash_attention_op", "gqa_attention_op"]
+__all__ = ["DECODE_ROWS", "HEAD_DIMS", "LAUNCHES", "REGIMES", "SOURCE", "flash_attention_op",
+           "gqa_attention_op", "regime"]

@@ -24,7 +24,12 @@ from repro_torch.data.recsys import CTRDataConfig, sample_ctr_batch
 from repro_torch.engine import make_engine
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
-from repro_torch.kernels.flash_attention import gqa_attention_op, gqa_attention_ref
+from repro_torch.kernels.flash_attention import (
+    DECODE_ROWS,
+    gqa_attention_op,
+    gqa_attention_ref,
+    regime,
+)
 from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
 from repro_torch.kernels.segment_reduce import (
     csr_aggregate_op,
@@ -470,15 +475,57 @@ def test_flash_attention_reads_the_cache_layout_in_place(dev, dtype):
     _close(got, want, _flash_tol(dtype))
 
 
-def test_flash_attention_rows_without_keys_are_nan_like_the_plain_version(dev):
-    q, k, v = _attn_inputs(1, 2, 2, 6, 8, 32, "f32", dev, seed=3)
-    for kw in (dict(window=2, q_offset=10), dict(q_offset=-2)):
-        got = gqa_attention_op(q, k, v, **kw)
-        want = gqa_attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(want).any()
-        keep = ~torch.isnan(want)
-        _close(got[keep], want[keep], _tol("f32"))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_rows_without_keys_are_nan_like_the_plain_version(dev, dtype):
+    """Both bf16 regimes too: 12 rows per KV head (decode), 24 (prefill)."""
+    for hq in (2, 4):
+        q, k, v = _attn_inputs(1, hq, 2, 6, 8, 32, dtype, dev, seed=3)
+        for kw in (dict(window=2, q_offset=10), dict(q_offset=-2)):
+            got = gqa_attention_op(q, k, v, **kw)
+            want = gqa_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(want).any()
+            keep = ~torch.isnan(want)
+            _close(got[keep], want[keep], _flash_tol(dtype))
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,lq,lk,d,window,q_offset",
+    [
+        (2, 16, 4, 4, 300, 64, None, 296),  # 16 rows per KV head: the last decode size
+        (1, 1, 1, 17, 17, 32, None, 0),  # 17: the smallest prefill
+        (1, 8, 2, 16, 200, 80, 100, 184),  # 64: one full prefill tile
+        (1, 5, 1, 13, 77, 16, None, 64),  # 65: a second tile with one row
+        (2, 4, 4, 128, 128, 128, None, 0),  # 128: two full tiles
+        (1, 3, 1, 43, 150, 64, 50, 107),  # 129, window edge inside key tiles
+        (1, 2, 2, 100, 100, 32, 37, 0),  # window of 37 keys: both edges inside a tile
+        (1, 4, 2, 40, 64, 64, None, -10),  # negative q_offset: rows before key 0 are NaN
+        (3, 16, 4, 4, 90, 16, None, -3),  # decode rows before key 0
+        (3, 8, 8, 1, 333, 16, None, 332),  # group = 1 decode step
+        (3, 8, 8, 1, 333, 128, 200, 332),  # group = 1 decode, D = 128, windowed
+        (2, 8, 2, 1, 4100, 80, 4096, 4099),  # danube decode: the ring over 33 stages
+        (1, 8, 2, 600, 600, 80, 256, 0),  # danube prefill tiles past the window
+        (1, 4, 1, 250, 1000, 32, None, 750),  # a chunk of a longer prompt
+    ],
+)
+def test_flash_attention_bf16_tiles_at_their_edges(dev, b, hq, hkv, lq, lk, d, window, q_offset):
+    """The tensor-core regimes at their tiles' edges: rows per (batch, KV
+    head) of 16 / 17 / 64 / 65 / 128 / 129, Lk not a multiple of the key
+    tile, every head dim, window edges inside a tile, negative q_offset."""
+    q, k, v = _attn_inputs(b, hq, hkv, lq, lk, d, "bf16", dev, seed=lq + lk + d)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    rows = lq * (hq // hkv)
+    assert regime(q.dtype, rows) == ("decode" if rows <= DECODE_ROWS else "prefill")
+    before = launch_counts()["flash_attention"]
+    got = gqa_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    want = gqa_attention_ref(q, k, v, **kw)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert (q_offset < 0) == bool(torch.isnan(want).any())
+    _close(got, want, _flash_tol("bf16"))  # NaN where both are NaN
+    again = gqa_attention_op(q, k, v, **kw)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
 
 
 def test_flash_attention_rejects_what_it_cannot_take(dev):
