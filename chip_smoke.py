@@ -16,7 +16,11 @@ Phases (each raises on failure, so the script exits non-zero):
    seed columns), with CUDA-event timings, bounds and library yardsticks:
    ``csr_round_residual`` on the fused plan's buckets, ``lp_round`` on
    the dense operator, ``csr_round`` on every bucket of the legacy
-   block-rows layout;
+   block-rows layout; both round kernels take each bucket's live row
+   lengths (the pad slots skipped and the F bytes gathered per round are
+   printed), and the f32 gate must reject each of them given two planted
+   faults (every row one live slot short; the pad slot left out while the
+   F row the pads name holds NaN);
 4. the main path: the all-sources DHLP-2 fixed-seed solve on the
    ``kernel`` engine and on the torch-op ``sparse`` engine, which must
    agree (equal rounds, max|ΔF| ≤ 5e-3, same top-10 candidates);
@@ -635,6 +639,66 @@ def compare_top10(a, b, what):
         + (f" except near-ties (10th/11th within {TIE_EPS}) at drugs {ties}" if ties else ""))
 
 
+def gather_counts(buckets):
+    """Slots the round kernels touch in one round over ``(nbr, wgt, live)``
+    buckets: the live slots, and the slots gathered (the live ones plus one
+    pad for each row that has pads)."""
+    live_slots = gathered = 0
+    for nbr, _, live in buckets:
+        live_slots += live.slots
+        gathered += live.slots + int((live.lengths < nbr.shape[1]).sum())
+    return live_slots, gathered
+
+
+def agrees(np, got, want, tol) -> tuple:
+    """The f32 gate with NaN: the same NaN positions and every other value
+    within ``tol``.  Returns ``(ok, max|Δ| over finite pairs)``."""
+    got = got.float().cpu().numpy()
+    want = want.float().cpu().numpy()
+    both = np.isfinite(got) & np.isfinite(want)
+    err = float(np.max(np.abs(got[both] - want[both]))) if both.any() else 0.0
+    ok = np.array_equal(np.isnan(got), np.isnan(want)) and np.allclose(
+        got, want, equal_nan=True, **tol)
+    return ok, err
+
+
+def round_fault_checks(torch, np, tag, nbr, live, F, launch, plain) -> None:
+    """B1/B3 given planted faults must fail the f32 gate against the plain
+    version: every row one live slot short, and the pad slot left out (its
+    id pointed elsewhere) while the F row the pads name holds NaN; the
+    kernel as it is must put that NaN in the same rows as the plain version.
+    ``launch(nbr, live, F)`` runs the kernel, ``plain(F)`` the plain version."""
+    from repro_torch.kernels.segment_reduce import LiveRows
+
+    d = nbr.shape[1]
+    short = LiveRows((live.lengths - 1).clamp_min(0), 0)
+    ok, err = agrees(np, launch(nbr, short, F), plain(F), F32_TOL)
+    if ok:
+        fail(f"{tag}: the gate accepted every row one live slot short (max|Δ| {err:.3e})")
+    log(f"  {tag}: planted fault 'live - 1 on every row' rejected (max|Δ| {err:.3e})")
+    padded = torch.nonzero(live.lengths < d)[:, 0]
+    if padded.numel() == 0:
+        fail(f"{tag}: no row has a pad to plant a NaN behind")
+    r = int(padded[0])
+    pad_id = int(nbr[r, int(live.lengths[r])])
+    F_nan = F.clone()
+    F_nan[pad_id] = float("nan")
+    want = plain(F_nan)
+    ok, err = agrees(np, launch(nbr, live, F_nan), want, F32_TOL)
+    nan_rows = int(torch.isnan(want).any(dim=1).sum())
+    if not ok:
+        fail(f"{tag}: with NaN in F row {pad_id} the kernel's NaN rows differ from the "
+             f"plain version's ({nan_rows} rows) or its values do (max|Δ| {err:.3e})")
+    pads = torch.arange(d, device=nbr.device)[None, :] >= live.lengths[:, None]
+    elsewhere = torch.where(pads, (pad_id + 1) % F.shape[0], nbr)
+    ok, _ = agrees(np, launch(elsewhere, live, F_nan), want, F32_TOL)
+    if ok:
+        fail(f"{tag}: the gate accepted the pad slot left out with NaN in its F row")
+    log(f"  {tag}: NaN in pad-named F row {pad_id} reaches the same {nan_rows} rows as the "
+        f"plain version; planted fault 'pad slot left out' rejected")
+    del F_nan
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -709,9 +773,9 @@ def main() -> int:
     kernel_engine = make_engine("kernel", cfg, device=dev)
     op = kernel_engine.prepare(net)
     buckets, perm, rank = op.payload.plan
-    nnz = sum(int(torch.count_nonzero(w)) for _, w in buckets)
-    slots = sum(int(nb.numel()) for nb, _ in buckets)
-    widths = [int(nb.shape[1]) for nb, _ in buckets]
+    nnz = sum(int(torch.count_nonzero(w)) for _, w, _ in buckets)
+    slots = sum(int(nb.numel()) for nb, _, _ in buckets)
+    widths = [int(nb.shape[1]) for nb, _, _ in buckets]
     log(f"  kernel plan: {len(buckets)} buckets, {slots} slots, nnz {nnz}, "
         f"widths {min(widths)}..{max(widths)}, built in {time.perf_counter() - t0:.1f} s")
 
@@ -723,21 +787,21 @@ def main() -> int:
     base = torch.rand((n, s), generator=gen, device=dev)
     prev = torch.rand((n, s), generator=gen, device=dev)
     c = 0.25
-    offsets = np.cumsum([0] + [int(nb.shape[0]) for nb, _ in buckets])
+    offsets = np.cumsum([0] + [int(nb.shape[0]) for nb, _, _ in buckets])
 
     def rows(i):
         return slice(int(offsets[i]), int(offsets[i + 1]))
 
-    sizes = [int(nb.numel()) for nb, _ in buckets]
+    sizes = [int(nb.numel()) for nb, _, _ in buckets]
     picks = {"largest": int(np.argmax(sizes)), "smallest": int(np.argmin(sizes))}
     b1_err = 0.0
     for storage, sdt, tol in (("f32", torch.float32, F32_TOL), ("bf16", torch.bfloat16, BF16_TOL)):
         Fq = F.to(sdt)
         for label, i in picks.items():
-            nbr, wgt = buckets[i]
+            nbr, wgt, live = buckets[i]
             wq = wgt.to(sdt)
             sl = rows(i)
-            out_k, d_k = csr_round_residual_op(nbr, wq, Fq, base[sl], prev[sl], c=c)
+            out_k, d_k = csr_round_residual_op(nbr, wq, Fq, base[sl], prev[sl], c=c, live=live)
             torch.cuda.synchronize()
             out_p, d_p = csr_round_residual_ref(nbr, wq, Fq, base[sl], prev[sl], c)
             torch.cuda.synchronize()
@@ -747,21 +811,29 @@ def main() -> int:
             if storage == "f32":
                 b1_err = max(b1_err, err)
             ms_k = cuda_ms(torch, lambda: csr_round_residual_op(
-                nbr, wq, Fq, base[sl], prev[sl], c=c))
+                nbr, wq, Fq, base[sl], prev[sl], c=c, live=live))
             log(f"    kernel {ms_k:.4f} ms")
+    i = picks["largest"]
+    nbr, wgt, live = buckets[i]
+    sl = rows(i)
+    round_fault_checks(
+        torch, np, "csr_round_residual largest bucket", nbr, live, F,
+        lambda nb, lv, F_: csr_round_residual_op(nb, wgt, F_, base[sl], prev[sl], c=c, live=lv)[0],
+        lambda F_: csr_round_residual_ref(nbr, wgt, F_, base[sl], prev[sl], c)[0],
+    )
 
     def b1_round():
         outs, deltas = [], []
-        for i, (nbr, wgt) in enumerate(buckets):
+        for i, (nbr, wgt, live) in enumerate(buckets):
             sl = rows(i)
-            o, d = csr_round_residual_op(nbr, wgt, F, base[sl], prev[sl], c=c)
+            o, d = csr_round_residual_op(nbr, wgt, F, base[sl], prev[sl], c=c, live=live)
             outs.append(o)
             deltas.append(d)
         return torch.cat(outs), torch.cat(deltas).amax(dim=0)
 
     def b1_round_plain():
         outs, deltas = [], []
-        for i, (nbr, wgt) in enumerate(buckets):
+        for i, (nbr, wgt, _) in enumerate(buckets):
             sl = rows(i)
             o, d = csr_round_residual_ref(nbr, wgt, F, base[sl], prev[sl], c)
             outs.append(o)
@@ -781,7 +853,7 @@ def main() -> int:
 
     # library yardstick: one cuSPARSE CSR product c*base + A@F (no residual)
     idx_r, idx_c, vals = [], [], []
-    for i, (nbr, wgt) in enumerate(buckets):
+    for i, (nbr, wgt, _) in enumerate(buckets):
         keep = wgt != 0
         idx_r.append(torch.nonzero(keep)[:, 0] + int(offsets[i]))
         idx_c.append(nbr[keep].long())
@@ -799,14 +871,20 @@ def main() -> int:
     b1_ms = cuda_ms(torch, b1_round)
     b1_plain_ms = cuda_ms(torch, b1_round_plain, warmup=1, iters=3)
     b1_lib_ms = cuda_ms(torch, lambda: torch.addmm(base, A_csr, F, beta=c))
-    grid_rows = sum(-(-int(nb.shape[0]) // rows_per_block(int(nb.shape[1]))) for nb, _ in buckets)
+    live_slots, gathered = gather_counts(buckets)
+    grid_rows = sum(-(-int(nb.shape[0]) // rows_per_block(-(-lv.slots // int(nb.shape[0]))))
+                    for nb, _, lv in buckets)
     b1_bound, b1_by = bound(
         2.0 * nnz * s,
-        4.0 * n * s * 4 + 8.0 * slots + 4.0 * grid_rows * s,
+        4.0 * n * s * 4 + 8.0 * live_slots + 4.0 * n + 4.0 * grid_rows * s,
     )
+    b1_l2 = 4.0 * gathered * s
     log(f"  csr_round_residual full round ({len(buckets)} buckets): "
         f"kernel {b1_ms:.4f} ms, plain {b1_plain_ms:.4f} ms, "
         f"torch.addmm(CSR) {b1_lib_ms:.4f} ms, bound {b1_bound:.4f} ms ({b1_by})")
+    log(f"    {slots} slots: {live_slots} live, {gathered - live_slots} pads gathered, "
+        f"{slots - gathered} pads skipped; {b1_l2 / 1e9:.2f} GB of F rows gathered from L2 "
+        f"or HBM per round, {b1_l2 / b1_ms / 1e9:.1f} TB/s")
     del A_csr
 
     solver = HeteroLP(LPConfig(backend="dense", use_kernel=True, sigma=1e-4,
@@ -834,17 +912,17 @@ def main() -> int:
     t0 = time.perf_counter()
     legacy_engine = make_engine("kernel", cfg, device=dev, fused_superstep=False)
     lbuckets, _ = legacy_engine.prepare(net).payload.fused
-    lnnz = sum(int(torch.count_nonzero(w)) for _, _, w in lbuckets)
-    lslots = sum(int(nb.numel()) for _, nb, _ in lbuckets)
-    lwidths = [int(nb.shape[1]) for _, nb, _ in lbuckets]
+    lnnz = sum(int(torch.count_nonzero(w)) for _, _, w, _ in lbuckets)
+    lslots = sum(int(nb.numel()) for _, nb, _, _ in lbuckets)
+    lwidths = [int(nb.shape[1]) for _, nb, _, _ in lbuckets]
     log(f"  legacy layout: {len(lbuckets)} buckets, {lslots} slots, nnz {lnnz}, "
         f"widths {min(lwidths)}..{max(lwidths)}, built in {time.perf_counter() - t0:.1f} s")
-    lbase = [base[rows] for rows, _, _ in lbuckets]
-    loffsets = np.cumsum([0] + [int(nb.shape[0]) for _, nb, _ in lbuckets])
+    lbase = [base[rows] for rows, _, _, _ in lbuckets]
+    loffsets = np.cumsum([0] + [int(nb.shape[0]) for _, nb, _, _ in lbuckets])
     lout = torch.empty_like(F)
     b3_err = 0.0
-    for i, (_, nbr, wgt) in enumerate(lbuckets):
-        out_k = csr_round_op(nbr, wgt, F, lbase[i], c=c)
+    for i, (_, nbr, wgt, live) in enumerate(lbuckets):
+        out_k = csr_round_op(nbr, wgt, F, lbase[i], c=c, live=live)
         torch.cuda.synchronize()
         out_p = csr_round_ref(nbr, wgt, F, lbase[i], c)
         got = out_k.cpu().numpy()
@@ -857,23 +935,28 @@ def main() -> int:
     log(f"  csr_round f32, all {len(lbuckets)} legacy buckets (S={s}): "
         f"max|Δ| vs plain = {b3_err:.3e} (rtol={F32_TOL['rtol']}, atol={F32_TOL['atol']})")
     widest = int(np.argmax(lwidths))
-    _, nbr, wgt = lbuckets[widest]
+    _, nbr, wgt, live = lbuckets[widest]
     Fq, wq = F.to(torch.bfloat16), wgt.to(torch.bfloat16)
-    out_k = csr_round_op(nbr, wq, Fq, lbase[widest], c=c)
+    out_k = csr_round_op(nbr, wq, Fq, lbase[widest], c=c, live=live)
     torch.cuda.synchronize()
     check_close(np, f"csr_round bf16 widest bucket ({nbr.shape[0]}x{nbr.shape[1]}, S={s})",
                 out_k, csr_round_ref(nbr, wq, Fq, lbase[widest], c), BF16_TOL)
     del Fq, wq, out_k
+    round_fault_checks(
+        torch, np, "csr_round widest legacy bucket", nbr, live, F,
+        lambda nb, lv, F_: csr_round_op(nb, wgt, F_, lbase[widest], c=c, live=lv),
+        lambda F_: csr_round_ref(nbr, wgt, F_, lbase[widest], c),
+    )
 
     def b3_round():
-        for i, (_, nbr, wgt) in enumerate(lbuckets):
-            csr_round_op(nbr, wgt, F, lbase[i], c=c,
+        for i, (_, nbr, wgt, live) in enumerate(lbuckets):
+            csr_round_op(nbr, wgt, F, lbase[i], c=c, live=live,
                          out=lout[int(loffsets[i]):int(loffsets[i + 1])])
         return lout
 
     def b3_round_plain():
         return torch.cat([csr_round_ref(nbr, wgt, F, lbase[i], c)
-                          for i, (_, nbr, wgt) in enumerate(lbuckets)])
+                          for i, (_, nbr, wgt, _) in enumerate(lbuckets)])
 
     first = b3_round().clone()
     torch.cuda.synchronize()
@@ -882,7 +965,7 @@ def main() -> int:
     log(f"  csr_round: two full legacy rounds ({len(lbuckets)} launches each) are byte-identical")
     # library yardstick: one cuSPARSE CSR product c*base + A_bucket@F per bucket
     lcsr = []
-    for _, nbr, wgt in lbuckets:
+    for _, nbr, wgt, _ in lbuckets:
         keep = wgt != 0
         lcsr.append(torch.sparse_coo_tensor(
             torch.stack([torch.nonzero(keep)[:, 0], nbr[keep].long()]),
@@ -898,11 +981,15 @@ def main() -> int:
     b3_ms = cuda_ms(torch, b3_round)
     b3_plain_ms = cuda_ms(torch, b3_round_plain, warmup=1, iters=3)
     b3_lib_ms = cuda_ms(torch, b3_round_lib)
-    b3_bound, b3_by = bound(2.0 * lnnz * s, 4.0 * n * s * 3 + 8.0 * lslots)
+    llive, lgathered = gather_counts([(nb, w, lv) for _, nb, w, lv in lbuckets])
+    b3_bound, b3_by = bound(2.0 * lnnz * s, 4.0 * n * s * 3 + 8.0 * llive + 4.0 * n)
+    b3_l2 = 4.0 * lgathered * s
     log(f"  csr_round full legacy round ({len(lbuckets)} buckets): "
         f"kernel {b3_ms:.4f} ms, plain {b3_plain_ms:.4f} ms, "
-        f"torch.addmm(CSR) x{len(lcsr)} {b3_lib_ms:.4f} ms, bound {b3_bound:.4f} ms ({b3_by}; "
-        f"{2.0 * lslots * s / 1e9:.1f} GFLOP with padding slots)")
+        f"torch.addmm(CSR) x{len(lcsr)} {b3_lib_ms:.4f} ms, bound {b3_bound:.4f} ms ({b3_by})")
+    log(f"    {lslots} slots: {llive} live, {lgathered - llive} pads gathered, "
+        f"{lslots - lgathered} pads skipped; {b3_l2 / 1e9:.2f} GB of F rows gathered from L2 "
+        f"or HBM per round, {b3_l2 / b3_ms / 1e9:.1f} TB/s")
     del F, base, prev, lbase, lout, lcsr
     torch.cuda.empty_cache()
 

@@ -47,6 +47,7 @@ from repro_torch.kernels.segment_reduce import (
     csr_round_op,
     csr_round_ref,
     csr_round_residual_op,
+    live_rows,
 )
 from repro_torch.kernels.segment_reduce.ref import _aggregate_f32
 
@@ -61,6 +62,8 @@ _STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 def _device_buckets(bcsr, device):
     """Upload width buckets + the inverse row permutation (legacy path).
 
+    Each bucket is ``(rows, nbr, wgt, live)`` with ``live`` its rows' live
+    slot counts (:class:`~repro_torch.kernels.segment_reduce.LiveRows`).
     Always f32: the legacy loops ignore ``storage_dtype``.  Neighbor ids
     are checked here, once, on the host: the kernel gathers them unchecked.
     """
@@ -74,6 +77,7 @@ def _device_buckets(bcsr, device):
             torch.as_tensor(b.rows.astype(np.int64), device=device),
             torch.as_tensor(b.nbr, dtype=torch.int32, device=device),
             torch.as_tensor(b.wgt, dtype=torch.float32, device=device),
+            live_rows(b.wgt, device),
         )
         for b in buckets
     )
@@ -84,7 +88,7 @@ def _device_buckets(bcsr, device):
 
 def _bucket_agg(buckets, inv_perm, F):
     """``A @ F`` via per-bucket gather + einsum, back in node order."""
-    parts = [csr_aggregate_ref(nbr, wgt, F) for _, nbr, wgt in buckets]
+    parts = [csr_aggregate_ref(nbr, wgt, F) for _, nbr, wgt, _ in buckets]
     return torch.cat(parts, dim=0)[inv_perm]
 
 
@@ -97,9 +101,11 @@ def _bucket_round(buckets, inv_perm, F, base, *, beta2: float):
     """
     out = torch.empty_like(F)
     off = 0
-    for rows, nbr, wgt in buckets:
+    for rows, nbr, wgt, live in buckets:
         m = nbr.shape[0]
-        csr_round_op(nbr, wgt, F, base[rows], c=beta2, out=out[off : off + m])
+        csr_round_op(
+            nbr, wgt, F, base[rows], c=beta2, out=out[off : off + m], live=live
+        )
         off += m
     return out[inv_perm]
 
@@ -233,9 +239,11 @@ def _tighten_buckets(buckets):
 def _device_plan(bcsr, *, storage: str, device, weight_scale: float = 1.0):
     """Permuted-space bucket plan for the fused-superstep loop.
 
-    Returns ``(buckets, perm, rank)``: ``perm`` is the bucket-concat row
-    order (node id at each permuted position), ``rank = argsort(perm)``
-    (permuted position of each node id).  Bucket neighbor ids are
+    Returns ``(buckets, perm, rank)``: each bucket is ``(nbr, wgt, live)``
+    with ``live`` its rows' live slot counts, taken from the f32 weights;
+    ``perm`` is the bucket-concat row order (node id at each permuted
+    position), ``rank = argsort(perm)`` (permuted position of each node
+    id).  Bucket neighbor ids are
     pre-remapped through ``rank`` so rounds gather from — and write to —
     permuted space directly: output rows land contiguously at static
     offsets, no per-round inverse permute.  Rows are re-bucketed by
@@ -251,10 +259,12 @@ def _device_plan(bcsr, *, storage: str, device, weight_scale: float = 1.0):
     for _, nbr, wgt in tight:
         if nbr.size and (nbr.min() < 0 or nbr.max() >= n):
             raise ValueError("blocked-CSR neighbor id out of range")
+        scaled = weight_scale * wgt
         dev.append(
             (
                 torch.as_tensor(rank[nbr], device=device),
-                torch.as_tensor(weight_scale * wgt).to(device=device, dtype=wdt),
+                torch.as_tensor(scaled).to(device=device, dtype=wdt),
+                live_rows(scaled, device),
             )
         )
     return (
@@ -279,14 +289,14 @@ def _plan_round(buckets, F, base, *, c, use_kernel, storage):
     """
     Fq = F.to(_STORAGE[storage]) if storage != "f32" else F
     if not use_kernel:
-        parts = [_aggregate_f32(nbr, wgt, Fq) for nbr, wgt in buckets]
+        parts = [_aggregate_f32(nbr, wgt, Fq) for nbr, wgt, _ in buckets]
         Fn = c * base.float() + torch.cat(parts, dim=0)
         delta = (Fn - F.float()).abs().amax(dim=0)
         return Fn, delta
     Fn = torch.empty_like(F)
     dparts = []
     off = 0
-    for nbr, wgt in buckets:
+    for nbr, wgt, live in buckets:
         m = nbr.shape[0]
         _, dl = csr_round_residual_op(
             nbr,
@@ -296,6 +306,7 @@ def _plan_round(buckets, F, base, *, c, use_kernel, storage):
             F[off : off + m],
             c=c,
             out=Fn[off : off + m],
+            live=live,
         )
         dparts.append(dl)
         off += m

@@ -3,9 +3,10 @@
 The CUDA kernels under ``repro_torch/csrc/`` have a plain C interface.
 :func:`load_library` compiles one source with ``nvcc`` for ``sm_90a`` into
 a shared library under ``<repo>/build/kernels/`` on first use (keyed by a
-hash of the source and flags, so an edited source never reuses a stale
-build) and opens it with ``ctypes``.  Nothing is compiled at import time:
-this module imports on machines without ``nvcc`` or a card.
+hash of the source, the ``csrc/`` headers it includes and the flags, so
+an edited source or header never reuses a stale build) and opens it with
+``ctypes``.  Nothing is compiled at import time: this module imports on
+machines without ``nvcc`` or a card.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -97,10 +99,30 @@ def find_nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _local_headers(source: str) -> List[str]:
+    """Every ``csrc/`` header that ``source`` includes, directly or not."""
+    seen: List[str] = []
+    todo = [source]
+    while todo:
+        text = (CSRC_DIR / todo.pop()).read_bytes()
+        for name in _LOCAL_INCLUDE.findall(text):
+            name = name.decode()
+            if name not in seen and (CSRC_DIR / name).exists():
+                seen.append(name)
+                todo.append(name)
+    return sorted(seen)
+
+
 def _target(source: str) -> Path:
-    src = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    """The build's path, keyed by the source, its local headers and flags."""
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for name in _local_headers(source):
+        h.update(name.encode() + b"\0" + (CSRC_DIR / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc_command(source: str, out: Path) -> List[str]:

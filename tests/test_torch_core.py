@@ -112,10 +112,12 @@ def test_plan_arrays_identical(bio, storage):
     _same(g_perm.numpy().astype(np.int32), w_perm)
     _same(g_rank.numpy().astype(np.int32), w_rank)
     wdt = {"f32": torch.float32, "bf16": torch.bfloat16}[storage]
-    for (gn, gw), (wn, ww) in zip(g_buckets, w_buckets, strict=True):
+    for (gn, gw, gl), (wn, ww) in zip(g_buckets, w_buckets, strict=True):
         _same(gn.numpy(), wn)
         assert gw.dtype == wdt
         _same(gw.float().numpy(), np.asarray(ww.astype(jnp.float32)))
+        # the port's buckets also carry each row's live slot count
+        assert gl.slots == int(np.count_nonzero(np.asarray(ww.astype(jnp.float32))))
 
 
 def test_extract_outputs_and_topk_identical(bio):

@@ -38,6 +38,8 @@ from repro_torch.kernels.segment_reduce import (
     csr_round_ref,
     csr_round_residual_op,
     csr_round_residual_ref,
+    live_rows,
+    vector_width,
 )
 from repro_torch.models.gnn import GCN, GCNConfig, gcn_adjacency
 from repro_torch.models.recsys import WideDeep
@@ -180,6 +182,112 @@ def test_csr_round_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="is on"):
         csr_round_op(nbr, wgt, F, base.cpu(), c=0.1)
     assert launch_counts()["csr_round"] == before
+
+
+def _padded_bucket(m, n, d, s, dtype, dev, seed, pad_id=0):
+    """A bucket laid out as the engines lay theirs out: every row's live
+    slots first (nonzero weights), then pads of weight 0 naming ``pad_id``.
+    Row 0 is all pads, row 1 has no pad, the rest are ragged."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, d + 1, m)
+    lengths[0], lengths[1 % m] = 0, d
+    nbr = rng.integers(0, n, (m, d)).astype(np.int32)
+    wgt = (rng.random((m, d)) + 0.05).astype(np.float32)
+    pad = np.arange(d)[None, :] >= lengths[:, None]
+    nbr[pad], wgt[pad] = pad_id, 0.0
+    F = rng.random((n, s)).astype(np.float32)
+    base, prev = (rng.random((m, s)).astype(np.float32) for _ in range(2))
+    sdt = STORAGE[dtype]
+    cast = lambda a, dt: torch.from_numpy(a).to(device=dev, dtype=dt)  # noqa: E731
+    return dict(
+        nbr=cast(nbr, torch.int32),
+        wgt=cast(wgt, sdt),
+        F=cast(F, sdt),
+        base=cast(base, torch.float32),
+        prev=cast(prev, torch.float32),
+        live=live_rows(wgt, dev),
+    )
+
+
+def _round(kernel, b, **kw):
+    """B3 or B1 on a bucket from ``_padded_bucket``; B1 gives its delta too."""
+    if kernel == "csr_round":
+        args = (b["nbr"], b["wgt"], b["F"], b["base"])
+        return csr_round_op(*args, c=0.3, **kw), csr_round_ref(*args, 0.3), None, None
+    args = (b["nbr"], b["wgt"], b["F"], b["base"], b["prev"])
+    out, delta = csr_round_residual_op(*args, c=0.3, **kw)
+    want, wdelta = csr_round_residual_ref(*args, 0.3)
+    return out, want, delta, wdelta
+
+
+@pytest.mark.parametrize(
+    "m,n,d,s",
+    [
+        (50, 70, 45, 37),  # D not a multiple of 32, odd S (one column a lane)
+        (33, 200, 64, 130),  # S a multiple of 2, not of 4
+        (70, 300, 200, 128),  # full 16-byte lanes
+        (9, 400, 300, 4396),  # the LP path's S; fewer rows than a block has warps
+    ],
+)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["csr_round", "csr_round_residual"])
+def test_csr_round_kernels_stop_at_live_lengths(dev, kernel, m, n, d, s, dtype):
+    b = _padded_bucket(m, n, d, s, dtype, dev, seed=m + d + s)
+    assert int(b["live"].lengths[0]) == 0 and int(b["live"].lengths[1]) == d
+    before = launch_counts()[kernel]
+    out, want, delta, wdelta = _round(kernel, b, live=b["live"])
+    torch.cuda.synchronize()
+    assert launch_counts()[kernel] == before + 1
+    _close(out, want, _tol(dtype))
+    if delta is not None:
+        _close(delta.amax(dim=0, keepdim=True), wdelta, _tol(dtype))
+    # skipping the pads changes nothing: the full-width launch agrees
+    full, _, _, _ = _round(kernel, b)
+    _close(out, full, _tol(dtype))
+    again, _, adelta, _ = _round(kernel, b, live=b["live"])
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert delta is None or torch.equal(delta, adelta)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["csr_round", "csr_round_residual"])
+def test_csr_round_kernels_take_unaligned_slices(dev, kernel, dtype):
+    """F starting one element past a 16-byte boundary and ``out=`` row
+    slices at odd offsets: the vector width falls back, the result holds."""
+    m, n, d, s = 40, 90, 40, 132
+    b = _padded_bucket(m, n, d, s, dtype, dev, seed=11)
+    flat = torch.empty(n * s + 1, device=dev, dtype=STORAGE[dtype])
+    shifted = flat[1:].view(n, s)
+    shifted.copy_(b["F"])
+    assert vector_width(b["F"]) == 4  # S = 132: 16 bytes in f32, 8 in bf16
+    assert vector_width(shifted) == 1
+    odt = STORAGE[dtype] if kernel == "csr_round" else torch.float32
+    buf = torch.full((m + 7, s), float("nan"), device=dev, dtype=odt)
+    b_shifted = dict(b, F=shifted)
+    got, want, _, _ = _round(kernel, b_shifted, live=b["live"], out=buf[3 : 3 + m])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf[3 : 3 + m].data_ptr()
+    _close(buf[3 : 3 + m], want, _tol(dtype))
+    assert torch.isnan(buf[:3].float()).all() and torch.isnan(buf[3 + m :].float()).all()
+
+
+@pytest.mark.parametrize("pad_id", [0, 7])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["csr_round", "csr_round_residual"])
+def test_csr_round_kernels_keep_nan_from_the_pad_row(dev, kernel, dtype, pad_id):
+    """NaN and Inf in the F row that the pads name reach exactly the rows
+    the plain version (which sums every pad) puts them in."""
+    m, n, d, s = 60, 80, 48, 64
+    b = _padded_bucket(m, n, d, s, dtype, dev, seed=pad_id + 5, pad_id=pad_id)
+    b["F"][pad_id, 3] = float("nan")
+    b["F"][pad_id, 10] = float("inf")
+    out, want, _, _ = _round(kernel, b, live=b["live"])
+    torch.cuda.synchronize()
+    got, ref = out.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isnan(ref[:, 3]).any() and np.isnan(ref[:, 10]).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_allclose(got, ref, equal_nan=True, **_tol(dtype))
 
 
 @pytest.mark.parametrize(
