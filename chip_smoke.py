@@ -9,13 +9,19 @@ Phases (each raises on failure, so the script exits non-zero):
 
 1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
 2. build: every CUDA kernel of the port, one ``nvcc`` per source, in
-   parallel; prints the build time (in all and per source) and the
-   ``-Xptxas -v`` report;
+   parallel, beside a scratch copy of ``lp_round`` without its hi·lo and
+   lo·hi products (a planted fault, under ``build/``); prints the build
+   time (in all and per source) and the ``-Xptxas -v`` report;
 3. kernels vs their plain PyTorch versions at their paths' shapes
    (``powerlaw`` scenario, scale 1.0, seed 0: 4,396 nodes, S = 4,396
    seed columns), with CUDA-event timings, bounds and library yardsticks:
    ``csr_round_residual`` on the fused plan's buckets, ``lp_round`` on
-   the dense operator, ``csr_round`` on every bucket of the legacy
+   the dense operator (f32 on its 3xTF32 tensor-core regime, bf16 on its
+   one-product regime; in f32 also against an f64 product, where its
+   error may be at most ``B2_F64_FACTOR`` times the plain f32 product's
+   and the planted one-product copy must fail that gate; the issued
+   TF32 rate, both bounds and the pre-pass's share of the time are
+   printed), ``csr_round`` on every bucket of the legacy
    block-rows layout; both round kernels take each bucket's live row
    lengths (the pad slots skipped and the F bytes gathered per round are
    printed), and the f32 gate must reject each of them given two planted
@@ -36,11 +42,15 @@ Phases (each raises on failure, so the script exits non-zero):
 8. the model slice's kernels vs their plain versions at their paths'
    shapes, with timings, bounds and library yardsticks: ``csr_aggregate``
    at both GCN layers on ``ogb_products`` (M = N = 2,449,029, D = 89,
-   S = 100 and 16; f32, and bf16 at S = 100), ``embedding_bag`` at the
+   S = 100 and 16; f32, and bf16 at S = 100) on the operator's live row
+   lengths (also timed over all D slots; the slots and GB of F rows it
+   gathers printed; a NaN in the F row the pads name must reach the
+   plain version's rows), ``embedding_bag`` at the
    deep and wide lookups of Wide & Deep ``FULL`` at ``serve_bulk``;
 9. GCN (``gcn-cora`` at ``ogb_products`` widths) full-graph inference:
    graph build on host and device, then the forward on the kernel path
-   (two ``csr_aggregate`` launches) and on the plain path, which must
+   (two ``csr_aggregate`` launches, both given the live row lengths) and
+   on the plain path, which must
    agree at f32 ``rtol=2e-4, atol=5e-4``;
 10. Wide & Deep ``FULL`` serving: ``serve_p99``, ``serve_bulk`` and
     ``retrieval_cand`` on the kernel path (two ``embedding_bag`` launches
@@ -90,6 +100,7 @@ SRC = ROOT / "src"
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
+PEAK_TF32_FLOPS = 495e12  # TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12  # HBM3
 F32_TOL = dict(rtol=2e-4, atol=5e-4)  # tests/test_kernels.py::_tol
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -97,6 +108,14 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # round only the output, so they differ by at most one unit in the last
 # place (2**-7 of the value); atol covers f32 summation order near zero.
 FLASH_BF16_TOL = dict(rtol=2e-2, atol=1e-5)
+# B2 against an f64 product: its max|Δ| may be at most this many times
+# that of the plain version (an f32 product, TF32 off) on the same inputs
+B2_F64_FACTOR = 4.0
+# B2's hi.lo and lo.hi products; the planted one-product variant drops them
+B2_LO_PRODUCTS = (
+    "          wgmma_tf32(acc, hi, desc_sw128(fl + 32 * kk), 1);\n",
+    "          wgmma_tf32(acc, lo, desc_sw128(fh + 32 * kk), 1);\n",
+)
 AGREE_TOL = 5e-3  # the agree_dense gate (DESIGN.md §15.3)
 TIE_EPS = 1e-5
 N_DRUGS_CHECKED = 16
@@ -242,8 +261,13 @@ def live_pairs(np, lq, lk, q_offset, window) -> int:
 
 
 def device_kernel_names(torch, fn) -> list:
-    """Names of the device kernels one call of ``fn`` runs, recorded in the
-    second of two profiled steps (``trace_solve``'s warm-up: the first
+    """Names of the device kernels one call of ``fn`` runs."""
+    return sorted(device_times(torch, fn))
+
+
+def device_times(torch, fn) -> dict:
+    """Device time (µs) by kernel name of one call of ``fn``, recorded in
+    the second of two profiled steps (``trace_solve``'s warm-up: the first
     step's device events can be lost)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -259,9 +283,67 @@ def device_kernel_names(torch, fn) -> list:
             torch.cuda.synchronize()
             prof.step()
     if not recorded:
-        fail("profile of an SDPA call: the profiler recorded no step")
-    return sorted({e.name for e in recorded[0] if e.device_type != DeviceType.CPU
-                   and not e.name.startswith("ProfilerStep")})
+        fail("profile of a kernel call: the profiler recorded no step")
+    times = {}
+    for e in recorded[0]:
+        if e.device_type != DeviceType.CPU and not e.name.startswith("ProfilerStep"):
+            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return times
+
+
+def start_variant(common, source, edits, tag):
+    """Start ``nvcc`` on a scratch copy of ``csrc/<source>`` with each
+    ``(old, new)`` text edit applied (a planted fault or a tuning variant),
+    under ``build/variants/<tag>/``, which git ignores.  Returns what
+    :func:`finish_variant` takes."""
+    text = (common.CSRC_DIR / source).read_text()
+    for old, new in edits:
+        if old not in text:
+            fail(f"variant {tag}: {source} no longer has {old.strip()!r}")
+        text = text.replace(old, new)
+    scratch = ROOT / "build" / "variants" / tag
+    scratch.mkdir(parents=True, exist_ok=True)
+    for header in common._local_headers(source):
+        (scratch / header).write_bytes((common.CSRC_DIR / header).read_bytes())
+    (scratch / source).write_text(text)
+    so = scratch / (Path(source).stem + ".so")
+    proc = subprocess.Popen([common.find_nvcc(), *common.NVCC_FLAGS, "-o", str(so),
+                             str(scratch / source)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return tag, proc, so
+
+
+def finish_variant(common, started):
+    """Wait for a :func:`start_variant` build; its library."""
+    tag, proc, so = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"variant {tag}: nvcc failed:\n{out}")
+    return common.BuiltLibrary(so, out)
+
+
+def with_library(ops, lib, fn):
+    """``fn()`` with ``ops``' kernel library swapped for ``lib``."""
+    shipped = ops.load_library
+    ops.load_library = lambda source: lib
+    try:
+        return fn()
+    finally:
+        ops.load_library = shipped
+
+
+def b2_f64_errors(torch, A, F, base, c, runs) -> dict:
+    """max|Δ| against an f64 product ``c·base + A @ F`` of each ``(label,
+    fn)`` in ``runs`` (each returns ``lp_round``'s output on these inputs)."""
+    want = c * base.double() + A.double() @ F.double()
+    errs = {}
+    for label, fn in runs:
+        got = fn()
+        torch.cuda.synchronize()
+        errs[label] = float((got.double() - want).abs().max())
+        del got
+    del want
+    return errs
 
 
 def sdpa_backend(torch, names, args) -> str:
@@ -717,8 +799,10 @@ def main() -> int:
     from repro_torch.core.solver import HeteroLP, LPConfig
     from repro_torch.engine import make_engine
     from repro_torch.kernels import SOURCES, launch_counts, reset_launch_counts
+    from repro_torch.kernels import common
     from repro_torch.kernels.common import build_all
-    from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref
+    from repro_torch.kernels.lp_blockspmm import lp_round_op, lp_round_ref, ops as lp_ops
+    from repro_torch.kernels.lp_blockspmm import regime as lp_regime
     from repro_torch.kernels.segment_reduce import (
         csr_round_op,
         csr_round_ref,
@@ -732,7 +816,8 @@ def main() -> int:
     from repro_torch.data.recsys import CTRDataConfig, sample_ctr_batch
     from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
     from repro_torch.kernels.segment_reduce import csr_aggregate_op, csr_aggregate_ref
-    from repro_torch.models.gnn import GCN, gcn_adjacency
+    from repro_torch.models import gnn as gnn_module
+    from repro_torch.models.gnn import GCN, gcn_adjacency_live
     from repro_torch.models.recsys import WideDeep, make_retrieval_scorer, make_serve
 
     t_script = time.perf_counter()
@@ -749,9 +834,12 @@ def main() -> int:
     # ------------------------------------------------------------- 2. build
     log("== phase 2: build")
     t0 = time.perf_counter()
+    planted = start_variant(common, lp_ops.SOURCE, [(line, "") for line in B2_LO_PRODUCTS],
+                            "lp_round_one_product")
     libs = build_all(list(SOURCES))
-    log(f"  built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s "
-        "(one nvcc per source, in parallel)")
+    one_product = finish_variant(common, planted)
+    log(f"  built {len(libs)} kernel libraries and the planted one-product lp_round in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     log("  nvcc wall per source: " + ", ".join(
         f"{src} {f'{lib.seconds:.1f} s' if lib.seconds else 'built earlier'}"
         for src, lib in libs.items()))
@@ -891,22 +979,56 @@ def main() -> int:
                                seed_mode="fixed"), device=dev)
     norm = op.norm
     A_eff, beta2 = solver.operator_arrays(norm)["fused"]
+    b2_reg = lp_regime(F.dtype)
     out_k = lp_round_op(A_eff, F, base, c=c)
     torch.cuda.synchronize()
     out_p = lp_round_ref(A_eff, F, base, c)
     torch.cuda.synchronize()
-    b2_err = check_close(np, f"lp_round f32 (N={n}, S={s})", out_k, out_p, F32_TOL)
+    b2_err = check_close(np, f"lp_round f32 {b2_reg} (N={n}, S={s})", out_k, out_p, F32_TOL)
     o2 = lp_round_op(A_eff, F, base, c=c)
     torch.cuda.synchronize()
     if not torch.equal(out_k, o2):
         fail("lp_round: two launches gave different bytes")
     del out_k, out_p, o2
+    Aq, Fq, bq = (x.to(torch.bfloat16) for x in (A_eff, F, base))
+    check_close(np, f"lp_round bf16 {lp_regime(Fq.dtype)} (N={n}, S={s})",
+                lp_round_op(Aq, Fq, bq, c=c), lp_round_ref(Aq, Fq, bq, c), BF16_TOL)
+    del Aq, Fq, bq
+    # the f64 gate: the kernel within B2_F64_FACTOR x the f32 product's error,
+    # and the same gate must reject the kernel without its hi.lo and lo.hi products
+    errs = b2_f64_errors(torch, A_eff, F, base, c, (
+        ("plain", lambda: lp_round_ref(A_eff, F, base, c)),
+        ("kernel", lambda: lp_round_op(A_eff, F, base, c=c)),
+        ("one product", lambda: with_library(
+            lp_ops, one_product, lambda: lp_round_op(A_eff, F, base, c=c))),
+    ))
+    gate = B2_F64_FACTOR * errs["plain"]
+    log(f"  lp_round f64 gate: max|Δ| vs A.double() @ F.double(): plain (f32 addmm, TF32 off) "
+        f"{errs['plain']:.3e}, kernel {errs['kernel']:.3e} "
+        f"({errs['kernel'] / errs['plain']:.2f}x), one-product variant "
+        f"{errs['one product']:.3e} ({errs['one product'] / errs['plain']:.1f}x); "
+        f"gate {B2_F64_FACTOR:g}x = {gate:.3e}")
+    if errs["kernel"] > gate:
+        fail(f"lp_round: max|Δ| vs f64 {errs['kernel']:.3e} > {gate:.3e}")
+    if errs["one product"] <= gate:
+        fail("lp_round: the f64 gate accepted the planted one-product variant")
+    log("  lp_round: planted fault 'hi.hi product only' rejected by the f64 gate")
     b2_ms = cuda_ms(torch, lambda: lp_round_op(A_eff, F, base, c=c), iters=5)
     b2_plain_ms = cuda_ms(torch, lambda: lp_round_ref(A_eff, F, base, c), iters=5)
     b2_lib_ms = cuda_ms(torch, lambda: torch.addmm(base, A_eff, F, beta=c), iters=5)
-    b2_bound, b2_by = bound(2.0 * n * n * s, 4.0 * (n * n + 3 * n * s))
-    log(f"  lp_round: kernel {b2_ms:.4f} ms, plain {b2_plain_ms:.4f} ms, "
-        f"torch.addmm {b2_lib_ms:.4f} ms, bound {b2_bound:.4f} ms ({b2_by})")
+    b2_ops = 2.0 * n * n * s
+    b2_bytes = 4.0 * (n * n + 3 * n * s)
+    # the least time at f32 accuracy: three TF32 products on the tensor cores
+    b2_bound, b2_by = bound(3 * b2_ops, b2_bytes, PEAK_TF32_FLOPS)
+    b2_f32_bound, _ = bound(b2_ops, b2_bytes)
+    parts = device_times(torch, lambda: lp_round_op(A_eff, F, base, c=c))
+    pre_us = sum(t for name, t in parts.items() if "split_f" in name or "pad_a" in name)
+    log(f"  lp_round ({b2_reg}): kernel {b2_ms:.4f} ms, plain {b2_plain_ms:.4f} ms, "
+        f"torch.addmm {b2_lib_ms:.4f} ms; bound {b2_bound:.4f} ms ({b2_by}, three TF32 "
+        f"products at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), f32 CUDA-core bound "
+        f"{b2_f32_bound:.4f} ms; {3 * b2_ops / b2_ms / 1e9:.1f} TFLOP/s of TF32 products "
+        f"issued; pre-pass {pre_us / 1e3:.4f} ms of {sum(parts.values()) / 1e3:.4f} ms "
+        f"profiled ({pre_us / max(sum(parts.values()), 1e-9):.3f})")
 
     # csr_round on the legacy (fused_superstep=False) block-rows layout
     t0 = time.perf_counter()
@@ -1046,6 +1168,7 @@ def main() -> int:
                   "dense use_kernel vs kernel")
     counts = launch_counts()
     del res_d
+    trace_solve(torch, "dense lp_round solve", lambda: solver.run(norm))
 
     # ------------------- where the time goes: one traced kernel-engine solve
     trace_solve(torch, "kernel-engine solve", lambda: kernel_engine.run(net))
@@ -1157,7 +1280,7 @@ def main() -> int:
     t_gen = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    nbr, wgt = gcn_adjacency(data.edges, device=dev)
+    nbr, wgt, glive = gcn_adjacency_live(data.edges, device=dev)
     feats = torch.from_numpy(data.feats).to(dev)
     torch.cuda.synchronize()
     t_adj = time.perf_counter() - t0
@@ -1172,10 +1295,14 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     h16 = torch.rand((gn, gcfg.d_hidden), generator=gen, device=dev)
 
-    def b4_bound(s_):
-        return bound(2.0 * g_nnz * s_, 4.0 * gn * s_ * 2 + 8.0 * gn * gd)
+    b4_live, b4_gathered = gather_counts([(nbr, wgt, glive)])
+    log(f"  live lengths: {b4_live} live slots of {gn * gd}; {b4_gathered - b4_live} rows "
+        f"gather their first pad, {gn * gd - b4_gathered} pad slots skipped")
 
-    b4 = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound_ms": 0.0}
+    def b4_bound(s_):  # F read and out written once, the live nbr/wgt slots, the lengths
+        return bound(2.0 * g_nnz * s_, 4.0 * gn * s_ * 2 + 8.0 * b4_live + 4.0 * gn)
+
+    b4 = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound_ms": 0.0, "all_ms": 0.0}
     keep = wgt != 0
     a_csr = torch.sparse_coo_tensor(
         torch.stack([torch.nonzero(keep)[:, 0], nbr[keep].long()]), wgt[keep], (gn, gn),
@@ -1184,36 +1311,55 @@ def main() -> int:
     del keep
     for label, F_ in (("layer 1", feats), ("layer 2", h16)):
         s_ = int(F_.shape[1])
-        out_k = csr_aggregate_op(nbr, wgt, F_)
+        out_k = csr_aggregate_op(nbr, wgt, F_, live=glive)
         torch.cuda.synchronize()
         out_p = csr_aggregate_ref(nbr, wgt, F_)
-        tag = f"csr_aggregate f32 {label} (M={gn}, D={gd}, S={s_})"
+        tag = f"csr_aggregate f32 {label} with live (M={gn}, D={gd}, S={s_})"
         b4["err"] = max(b4["err"], check_close(np, tag, out_k, out_p, F32_TOL))
-        if not torch.equal(out_k, csr_aggregate_op(nbr, wgt, F_)):
+        if not torch.equal(out_k, csr_aggregate_op(nbr, wgt, F_, live=glive)):
             fail(f"{tag}: two launches gave different bytes")
         check_close(np, tag + " vs torch.sparse.mm(CSR)", out_k, torch.sparse.mm(a_csr, F_),
                     F32_TOL)
+        check_close(np, f"csr_aggregate f32 {label} without live", csr_aggregate_op(nbr, wgt, F_),
+                    out_p, F32_TOL)
         del out_k, out_p
-        ms = cuda_ms(torch, lambda: csr_aggregate_op(nbr, wgt, F_))
+        ms = cuda_ms(torch, lambda: csr_aggregate_op(nbr, wgt, F_, live=glive))
+        all_ms = cuda_ms(torch, lambda: csr_aggregate_op(nbr, wgt, F_))
         plain_ms = cuda_ms(torch, lambda: csr_aggregate_ref(nbr, wgt, F_), warmup=1, iters=2)
         lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(a_csr, F_))
         bms, by = b4_bound(s_)
-        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse.mm(CSR) "
-            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        rows_gb = 4.0 * b4_gathered * s_ / 1e9
+        log(f"    kernel {ms:.4f} ms (all {gd} slots: {all_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"torch.sparse.mm(CSR) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        log(f"    {b4_gathered} slots gathered, {rows_gb:.2f} GB of F rows, "
+            f"{rows_gb / ms:.2f} TB/s; those gathers from HBM alone would take "
+            f"{rows_gb * 1e9 / PEAK_BYTES * 1e3:.4f} ms (F is {4.0 * gn * s_ / 1e9:.2f} GB)")
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("lib_ms", lib_ms),
-                         ("bound_ms", bms)):
+                         ("bound_ms", bms), ("all_ms", all_ms)):
             b4[key] += val
     b4["by"] = by
+    # a NaN in the F row the pads name (node 0) reaches the rows that have pads
+    h_nan = h16.clone()
+    h_nan[0] = float("nan")
+    want = csr_aggregate_ref(nbr, wgt, h_nan)
+    ok, err = agrees(np, csr_aggregate_op(nbr, wgt, h_nan, live=glive), want, F32_TOL)
+    nan_rows = int(torch.isnan(want).any(dim=1).sum())
+    if not ok:
+        fail(f"csr_aggregate with live: NaN in F row 0 reaches other rows than in the plain "
+             f"version ({nan_rows} rows) or values differ (max|Δ| {err:.3e})")
+    log(f"  csr_aggregate with live: NaN in pad-named F row 0 reaches the same {nan_rows} rows "
+        "as the plain version")
+    del h_nan, want
     fq, wq = feats.to(torch.bfloat16), wgt.to(torch.bfloat16)
-    out_k = csr_aggregate_op(nbr, wq, fq)
+    out_k = csr_aggregate_op(nbr, wq, fq, live=glive)
     torch.cuda.synchronize()
-    check_close(np, f"csr_aggregate bf16 layer 1 (S={gcfg.d_feat})", out_k,
+    check_close(np, f"csr_aggregate bf16 layer 1 with live (S={gcfg.d_feat})", out_k,
                 csr_aggregate_ref(nbr, wq, fq), BF16_TOL)
-    log(f"    kernel bf16 {cuda_ms(torch, lambda: csr_aggregate_op(nbr, wq, fq)):.4f} ms")
+    log(f"    kernel bf16 {cuda_ms(torch, lambda: csr_aggregate_op(nbr, wq, fq, live=glive)):.4f} ms")
     del fq, wq, out_k, h16, a_csr
-    log(f"  csr_aggregate per GCN forward (both layers): kernel {b4['ms']:.4f} ms, plain "
-        f"{b4['plain_ms']:.4f} ms, torch.sparse.mm(CSR) {b4['lib_ms']:.4f} ms, "
-        f"bound {b4['bound_ms']:.4f} ms ({b4['by']})")
+    log(f"  csr_aggregate per GCN forward (both layers, live): kernel {b4['ms']:.4f} ms "
+        f"(all slots: {b4['all_ms']:.4f} ms), plain {b4['plain_ms']:.4f} ms, "
+        f"torch.sparse.mm(CSR) {b4['lib_ms']:.4f} ms, bound {b4['bound_ms']:.4f} ms ({b4['by']})")
 
     # the Wide & Deep model (its 5.12 GB table made on the card) and inputs
     torch.cuda.empty_cache()
@@ -1286,20 +1432,33 @@ def main() -> int:
     # ------------------------------------ 9. GCN full-graph inference
     log("== phase 9: GCN full-graph inference, gcn-cora at ogb_products widths")
     gcn = GCN(gcfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    aggregate_op = gnn_module.csr_aggregate_op
+    with_live = []
+
+    def recording_aggregate(*args, **kw):  # notes whether each launch had live lengths
+        with_live.append(kw.get("live") is not None)
+        return aggregate_op(*args, **kw)
+
+    gnn_module.csr_aggregate_op = recording_aggregate
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits = gcn(feats, nbr, wgt)
-    torch.cuda.synchronize()
+    try:
+        logits = gcn(feats, nbr, wgt, glive)
+        torch.cuda.synchronize()
+    finally:
+        gnn_module.csr_aggregate_op = aggregate_op
     t_first = time.perf_counter() - t0
     gcn_counts = launch_counts()
     log(f"  kernel path: logits {tuple(logits.shape)} in {t_first:.4f} s wall; "
-        f"launches {gcn_counts}")
+        f"launches {gcn_counts}, with live lengths: {with_live}")
     if gcn_counts["csr_aggregate"] != gcfg.n_layers or sum(gcn_counts.values()) != gcfg.n_layers:
         fail(f"GCN forward launched {gcn_counts}, expected {gcfg.n_layers} csr_aggregate")
+    if with_live != [True] * gcfg.n_layers:
+        fail(f"GCN forward: csr_aggregate calls with live lengths {with_live}")
     if logits.shape != (gn, gcfg.n_classes) or not torch.isfinite(logits).all():
         fail(f"GCN logits: shape {tuple(logits.shape)} or non-finite values")
-    walls = wall_s(torch, lambda: gcn(feats, nbr, wgt), iters=5)
+    walls = wall_s(torch, lambda: gcn(feats, nbr, wgt, glive), iters=5)
     gcn.use_kernel = False
     plain_logits = gcn(feats, nbr, wgt)
     plain_walls = wall_s(torch, lambda: gcn(feats, nbr, wgt), iters=2)
@@ -1311,8 +1470,8 @@ def main() -> int:
         f"{float((logits.argmax(1).cpu().numpy() == data.labels).mean()):.4f} "
         "(random weights: near chance, 1/47)")
     del logits, plain_logits
-    trace_solve(torch, "GCN forward", lambda: gcn(feats, nbr, wgt))
-    del gcn, nbr, wgt, feats, data
+    trace_solve(torch, "GCN forward", lambda: gcn(feats, nbr, wgt, glive))
+    del gcn, nbr, wgt, glive, feats, data
     torch.cuda.empty_cache()
 
     # --------------------------------------------- 10. Wide & Deep serving

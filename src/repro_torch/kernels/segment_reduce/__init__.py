@@ -3,6 +3,7 @@ from repro_torch.kernels.segment_reduce.ops import (
     LAUNCHES,
     ROUND_LAUNCHES,
     LiveRows,
+    aggregate_lanes,
     csr_aggregate_op,
     csr_round_op,
     csr_round_residual_op,
@@ -21,6 +22,7 @@ __all__ = [
     "LAUNCHES",
     "LiveRows",
     "ROUND_LAUNCHES",
+    "aggregate_lanes",
     "csr_aggregate_op",
     "csr_aggregate_ref",
     "csr_round_op",

@@ -90,6 +90,17 @@ def vector_width(F: torch.Tensor) -> int:
     return vec
 
 
+def aggregate_lanes(s: int, vec: int) -> int:
+    """Threads per row group of the aggregate kernel: the power of two that
+    covers ``s / vec`` lanes, at most a warp (wider rows take column tiles
+    of ``32 * vec``).  At S = 100 in 4-column lanes: 32 (25 of them hold
+    columns), one row per warp; at S = 16: 4, eight rows per warp."""
+    lanes = 1
+    while lanes < 32 and lanes * vec < s:
+        lanes *= 2
+    return lanes
+
+
 def _launcher(source: str, symbol: str, n_pointers: int, n_ints: int):
     fn = getattr(load_library(source).cdll, symbol)
     if fn.argtypes is None:
@@ -134,6 +145,7 @@ def csr_aggregate_op(
     F: torch.Tensor,
     *,
     out: Optional[torch.Tensor] = None,
+    live: Optional[LiveRows] = None,
 ) -> torch.Tensor:
     """``out[r] = Σ_k wgt[r, k] · F[nbr[r, k]]`` in ``F.dtype`` (f32 sums).
 
@@ -141,7 +153,10 @@ def csr_aggregate_op(
     (M, D) and ``F`` (N, S) of one dtype.  Unlike ``repro``'s wrapper
     there is no node-count gate: the kernel gathers F rows from device
     memory, so any N runs on it.  ``out``, when given, is an ``(M, S)``
-    buffer of ``F``'s dtype the result is written into.
+    buffer of ``F``'s dtype the result is written into.  ``live``, when
+    given, lets the kernel stop each row after its live slots plus one
+    pad, as in :func:`csr_round_op`; the plain version sums every slot and
+    gives the same function.
     """
     if on_cpu(nbr, wgt, F):
         res = csr_aggregate_ref(nbr, wgt, F)
@@ -155,20 +170,25 @@ def csr_aggregate_op(
         out = torch.empty((m, s), dtype=F.dtype, device=dev)
     else:
         check_cuda_operand("out", out, device=dev, dtypes=(F.dtype,), shape=(m, s))
+    live_ptr = _check_live(live, m, dev)
     if m == 0 or s == 0:
         return out
+    vec = min(vector_width(F), vector_width(out))
     fn = load_library(AGGREGATE_SOURCE).cdll.csr_aggregate_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     err = fn(
         nbr.data_ptr(),
         wgt.data_ptr(),
+        live_ptr,
         F.data_ptr(),
         out.data_ptr(),
         m,
         d,
         s,
+        vec,
+        aggregate_lanes(s, vec),
         int(F.dtype == torch.bfloat16),
         dev.index,
         stream_handle(dev),

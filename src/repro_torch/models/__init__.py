@@ -1,7 +1,7 @@
 """The port's models: GCN full-graph inference, Wide & Deep serving and
 transformer serving (GQA, dense FFN)."""
 
-from repro_torch.models.gnn import GCN, GCNConfig, gcn_adjacency, gcn_forward
+from repro_torch.models.gnn import GCN, GCNConfig, gcn_adjacency, gcn_adjacency_live, gcn_forward
 from repro_torch.models.recsys import (
     WideDeep,
     WideDeepConfig,
@@ -24,6 +24,7 @@ __all__ = [
     "WideDeep",
     "WideDeepConfig",
     "gcn_adjacency",
+    "gcn_adjacency_live",
     "gcn_forward",
     "init_cache",
     "make_decode_step",

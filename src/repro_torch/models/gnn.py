@@ -6,7 +6,8 @@ adjacency with self-loops, then applies ``h @ W + b``, with ReLU between
 the layers.  The reference aggregates with a COO ``scatter_spmm``; here
 the aggregate runs on the padded CSR that ``repro.graph.structures``
 describes as the kernels' layout, through the ``csr_aggregate`` kernel
-(one launch per layer) — the path ``repro``'s documents name for it.
+(one launch per layer) — the path ``repro``'s documents name for it —
+which stops each row after its live slots (:func:`gcn_adjacency_live`).
 
 Inference only: the parameters do not require gradients.  The training
 step (loss, optimiser and the backward through the kernel) comes later.
@@ -16,7 +17,7 @@ GAT, DimeNet, MeshGraphNet and SAGE wait for a later slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,7 +25,7 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.segment import gcn_norm, scatter_spmm
 from repro_torch.graph.structures import EdgeList, padded_csr_tensors
-from repro_torch.kernels.segment_reduce import csr_aggregate_op, csr_aggregate_ref
+from repro_torch.kernels.segment_reduce import LiveRows, csr_aggregate_op, csr_aggregate_ref
 from repro_torch.models.common import dense_init
 
 
@@ -42,13 +43,18 @@ class GCNConfig:
         return [self.d_feat] + [self.d_hidden] * (self.n_layers - 1) + [self.n_classes]
 
 
-def gcn_adjacency(edges: EdgeList, device: DeviceLike = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The GCN operator ``D^{-1/2} A D^{-1/2}`` as a padded CSR on ``device``.
+def gcn_adjacency_live(
+    edges: EdgeList, device: DeviceLike = None
+) -> Tuple[torch.Tensor, torch.Tensor, LiveRows]:
+    """The GCN operator ``D^{-1/2} A D^{-1/2}`` as a padded CSR on ``device``,
+    with each row's live length.
 
     ``edges`` is the graph with its self-loops (``symmetrized()
     .with_self_loops()``, as ``planted_partition_graph`` gives it).
-    Prepared once per graph; returns ``(nbr, wgt)``, ``(N, max_deg)``
-    int32 and f32.
+    Prepared once per graph; returns ``(nbr, wgt, live)``: ``(N, max_deg)``
+    int32 and f32, and the in-degrees as :class:`LiveRows`.  Every edge
+    weight of the normalised operator is positive and the pads are
+    ``(0, 0.0)``, so a row's degree is one past its last nonzero slot.
     """
     dev = resolve_device(device)
     src, dst, w = (
@@ -56,7 +62,14 @@ def gcn_adjacency(edges: EdgeList, device: DeviceLike = None) -> Tuple[torch.Ten
     )
     wn = gcn_norm(src, dst, w, edges.num_nodes)
     del w
-    nbr, wgt, _ = padded_csr_tensors(src, dst, wn, edges.num_nodes)
+    nbr, wgt, deg = padded_csr_tensors(src, dst, wn, edges.num_nodes)
+    lengths = deg.clamp(max=nbr.shape[1]).int()
+    return nbr, wgt, LiveRows(lengths, int(lengths.sum()))
+
+
+def gcn_adjacency(edges: EdgeList, device: DeviceLike = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gcn_adjacency_live` without the live lengths: ``(nbr, wgt)``."""
+    nbr, wgt, _ = gcn_adjacency_live(edges, device)
     return nbr, wgt
 
 
@@ -90,13 +103,24 @@ class GCN(nn.Module):
             for b in dims[1:]
         )
 
-    def forward(self, feats: torch.Tensor, nbr: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
-        """Logits ``(N, n_classes)`` for node features ``(N, d_feat)``."""
-        aggregate = csr_aggregate_op if self.use_kernel else csr_aggregate_ref
+    def forward(
+        self,
+        feats: torch.Tensor,
+        nbr: torch.Tensor,
+        wgt: torch.Tensor,
+        live: Optional[LiveRows] = None,
+    ) -> torch.Tensor:
+        """Logits ``(N, n_classes)`` for node features ``(N, d_feat)``.
+
+        ``live`` (from :func:`gcn_adjacency_live`) lets the kernel skip each
+        row's pads; the plain path sums every slot, the same function."""
         h = feats
         last = len(self.weights) - 1
         for i, (W, b) in enumerate(zip(self.weights, self.biases)):
-            h = aggregate(nbr, wgt, h)  # Ã h
+            if self.use_kernel:
+                h = csr_aggregate_op(nbr, wgt, h, live=live)  # Ã h
+            else:
+                h = csr_aggregate_ref(nbr, wgt, h)
             h = h @ W + b
             if i < last:
                 h = torch.relu(h)
@@ -123,4 +147,4 @@ def gcn_forward(
     return h
 
 
-__all__ = ["GCN", "GCNConfig", "gcn_adjacency", "gcn_forward"]
+__all__ = ["GCN", "GCNConfig", "gcn_adjacency", "gcn_adjacency_live", "gcn_forward"]

@@ -41,7 +41,7 @@ from repro_torch.kernels.segment_reduce import (
     live_rows,
     vector_width,
 )
-from repro_torch.models.gnn import GCN, GCNConfig, gcn_adjacency
+from repro_torch.models.gnn import GCN, GCNConfig, gcn_adjacency, gcn_adjacency_live
 from repro_torch.models.recsys import WideDeep
 from repro_torch.models.transformer import Transformer, init_cache
 from repro_torch.scenarios import generate
@@ -684,3 +684,129 @@ def test_transformer_on_the_card(dev, name, dtype):
         host, host_c, _ = run(cpu, "cpu")
         _close(got, host, _tol(dtype))
         _close(got_c, host_c, _tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# B2 lp_round on the tensor cores (3xTF32; bf16 one product) and B4
+# csr_aggregate on live row lengths
+
+
+def _lp_inputs(n, s, dtype, dev, seed, density=0.06):
+    """A non-negative, sparse-ish A scaled like an LP operator (row sums
+    about 0.9), F and base in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    A = rng.random((n, n)) * (rng.random((n, n)) < density)
+    A = 0.9 * A / np.maximum(A.sum(axis=1, keepdims=True), 1e-30)
+    sdt = STORAGE[dtype]
+    return tuple(
+        torch.from_numpy(x.astype(np.float32)).to(dev, sdt)
+        for x in (A, rng.random((n, s)), rng.random((n, s)))
+    )
+
+
+_EDGES = (63, 64, 65, 127, 128, 129, 255, 256, 257)
+
+
+@pytest.mark.parametrize(
+    "n,s",
+    [(e, e) for e in _EDGES]
+    + [(63, 257), (257, 65), (129, 64), (256, 127), (130, 4396), (4396, 129), (4396, 4396)],
+)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_lp_round_at_tile_edges(dev, n, s, dtype):
+    """Ragged row, column and k tiles; N % 4 != 0 takes the padded-A route."""
+    A, F, base = _lp_inputs(n, s, dtype, dev, seed=7 * n + s)
+    before = launch_counts()["lp_round"]
+    out = lp_round_op(A, F, base, c=0.25)
+    torch.cuda.synchronize()
+    assert launch_counts()["lp_round"] == before + 1
+    assert out.dtype == STORAGE[dtype] and out.shape == (n, s)
+    _close(out, lp_round_ref(A, F, base, 0.25), _tol(dtype))
+    assert torch.equal(out, lp_round_op(A, F, base, c=0.25))  # fixed k order
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_lp_round_takes_an_unaligned_a(dev, dtype):
+    """A starting one element past a 16-byte boundary: TMA cannot read it
+    in place, so the pre-pass copies it."""
+    n, s = 200, 96
+    A, F, base = _lp_inputs(n, s, dtype, dev, seed=5)
+    flat = torch.empty(n * n + 1, device=dev, dtype=STORAGE[dtype])
+    shifted = flat[1:].view(n, n)
+    shifted.copy_(A)
+    out = lp_round_op(shifted, F, base, c=0.5)
+    torch.cuda.synchronize()
+    _close(out, lp_round_ref(A, F, base, 0.5), _tol(dtype))
+
+
+@pytest.mark.parametrize("n,s", [(1000, 1111), (1030, 700), (4396, 4396)])
+def test_lp_round_f32_holds_the_f64_gate(dev, n, s):
+    """Against an f64 product the kernel's max|Δ| is at most 4x the plain
+    f32 product's (chip_smoke.B2_F64_FACTOR); N = 1030 takes the padded-A
+    route."""
+    A, F, base = _lp_inputs(n, s, "f32", dev, seed=n + s)
+    want = 0.25 * base.double() + A.double() @ F.double()
+    plain = float((lp_round_ref(A, F, base, 0.25).double() - want).abs().max())
+    got = float((lp_round_op(A, F, base, c=0.25).double() - want).abs().max())
+    assert 0.0 < plain and got <= 4.0 * plain
+
+
+@pytest.mark.parametrize(
+    "m,n,d,s",
+    [
+        (300, 500, 40, 16),  # 4 lanes, 8 rows of different lengths per warp
+        (301, 400, 89, 1),  # one lane a row, 32 rows per warp
+        (257, 300, 89, 100),  # the GCN's first layer: 25 lanes of 4 columns
+        (64, 90, 130, 300),  # three column tiles, the last ragged
+        (70, 80, 12, 2),  # two-column lanes
+    ],
+)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_csr_aggregate_stops_at_live_lengths(dev, m, n, d, s, dtype):
+    """Rows of 0 and D live slots and ragged ones between; the sums equal
+    the plain version's and, bit for bit, the launch without ``live``."""
+    b = _padded_bucket(m, n, d, s, dtype, dev, seed=m + d + s)
+    assert int(b["live"].lengths[0]) == 0 and int(b["live"].lengths[1]) == d
+    args = (b["nbr"], b["wgt"], b["F"])
+    before = launch_counts()["csr_aggregate"]
+    out = csr_aggregate_op(*args, live=b["live"])
+    torch.cuda.synchronize()
+    assert launch_counts()["csr_aggregate"] == before + 1
+    _close(out, csr_aggregate_ref(*args), _tol(dtype))
+    assert torch.equal(out, csr_aggregate_op(*args))  # live=None: every slot, same sums
+    assert torch.equal(out, csr_aggregate_op(*args, live=b["live"]))
+
+
+@pytest.mark.parametrize("s", [16, 1, 100])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_csr_aggregate_with_live_keeps_nan_from_the_pad_row(dev, s, dtype):
+    """NaN and Inf in the F row that the pads name reach exactly the rows
+    the plain version (which sums every pad) puts them in."""
+    pad_id = 7
+    b = _padded_bucket(60, 80, 48, s, dtype, dev, seed=s + 3, pad_id=pad_id)
+    b["F"][pad_id, 0] = float("nan")
+    b["F"][pad_id, s - 1] = float("inf") if s > 1 else float("nan")
+    got = csr_aggregate_op(b["nbr"], b["wgt"], b["F"], live=b["live"])
+    want = csr_aggregate_ref(b["nbr"], b["wgt"], b["F"])
+    torch.cuda.synchronize()
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isnan(w[:, 0]).any()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g, w, equal_nan=True, **_tol(dtype))
+
+
+def test_gcn_with_live_on_the_card(dev):
+    """The forward on the operator's live lengths launches one aggregate
+    per layer and equals the forward over every slot."""
+    data = planted_partition_graph(3000, 20000, 7, 100, seed=1, device=dev)
+    cfg = GCNConfig(name="gcn", d_feat=100, n_classes=7)
+    model = GCN(cfg, device=dev)
+    nbr, wgt, live = gcn_adjacency_live(data.edges, device=dev)
+    feats = torch.from_numpy(data.feats).to(dev)
+    before = launch_counts()["csr_aggregate"]
+    got = model(feats, nbr, wgt, live)
+    torch.cuda.synchronize()
+    assert launch_counts()["csr_aggregate"] - before == cfg.n_layers
+    assert torch.equal(got, model(feats, nbr, wgt))
+    model.use_kernel = False
+    _close(got, model(feats, nbr, wgt), _tol("f32"))
