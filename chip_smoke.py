@@ -46,7 +46,11 @@ Phases (each raises on failure, so the script exits non-zero):
    lengths (also timed over all D slots; the slots and GB of F rows it
    gathers printed; a NaN in the F row the pads name must reach the
    plain version's rows), ``embedding_bag`` at the
-   deep and wide lookups of Wide & Deep ``FULL`` at ``serve_bulk``;
+   deep and wide lookups of Wide & Deep ``FULL`` at ``serve_bulk`` (each
+   with the launch plan the wrapper picked), the deep lookup written into
+   the padded MLP input (timed beside the ``torch.cat`` it replaces), and
+   one ragged launch (the deep bags minus 17, K = 3, random weights) held
+   to the plain version and ``F.embedding_bag``;
 9. GCN (``gcn-cora`` at ``ogb_products`` widths) full-graph inference:
    graph build on host and device, then the forward on the kernel path
    (two ``csr_aggregate`` launches, both given the live row lengths) and
@@ -55,7 +59,10 @@ Phases (each raises on failure, so the script exits non-zero):
 10. Wide & Deep ``FULL`` serving: ``serve_p99``, ``serve_bulk`` and
     ``retrieval_cand`` on the kernel path (two ``embedding_bag`` launches
     per serve call, one per retrieval call) and on the plain path, at the
-    same tolerance; peak device memory with the 5.12 GB table resident;
+    same tolerance; the deep input written in place must equal the plain
+    path's ``torch.cat`` bit for bit, and the traced ``serve_bulk`` call
+    must hold no concatenation kernel; peak device memory with the 5.12 GB
+    table resident;
 10a. ``flash_attention`` vs its plain version at the transformer path's
     shapes (``h2o-danube-1.8b`` prefill_32k and decode_32k layer launches
     and an 8k f32 one, a ``stablelm-1.6b`` 4k one), bf16 held at
@@ -814,7 +821,7 @@ def main() -> int:
     from repro_torch.configs import cells, gcn_cora, wide_deep
     from repro_torch.data.graphs import planted_partition_graph
     from repro_torch.data.recsys import CTRDataConfig, sample_ctr_batch
-    from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref, launch_plan
     from repro_torch.kernels.segment_reduce import csr_aggregate_op, csr_aggregate_ref
     from repro_torch.models import gnn as gnn_module
     from repro_torch.models.gnn import GCN, gcn_adjacency_live
@@ -1401,6 +1408,7 @@ def main() -> int:
         d_ = int(tab.shape[1])
         tag = f"embedding_bag f32 {label} serve_bulk (V={tab.shape[0]}, D={d_}, B={b_}, K={k_})"
         out_k = embedding_bag_op(tab, idx, w)
+        log(f"    {label}: {launch_plan(tab, idx, w, out_k)}")
         torch.cuda.synchronize()
         out_p = embedding_bag_ref(tab, idx, w)
         b5["err"] = max(b5["err"], check_close(np, tag, out_k, out_p, F32_TOL))
@@ -1419,7 +1427,8 @@ def main() -> int:
         ops, nbytes = 2.0 * b_ * k_ * d_, 8.0 * b_ * k_ + 4.0 * n_rows * d_ + 4.0 * b_ * d_
         bms, by = bound(ops, nbytes)
         log(f"    {n_rows} distinct rows; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"F.embedding_bag {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"F.embedding_bag {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); the bound's "
+            f"{nbytes / 1e9:.4f} GB at {nbytes / ms / 1e9:.3f} TB/s")
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("lib_ms", lib_ms),
                          ("ops", ops), ("bytes", nbytes)):
             b5[key] += val
@@ -1427,7 +1436,44 @@ def main() -> int:
     log(f"  embedding_bag per serve_bulk call (deep + wide): kernel {b5['ms']:.4f} ms, plain "
         f"{b5['plain_ms']:.4f} ms, F.embedding_bag {b5['lib_ms']:.4f} ms, "
         f"bound {b5['bound_ms']:.4f} ms ({b5['by']})")
-    del deep_idx, deep_w, wide_w, rows
+    # the deep lookup written in place into the padded MLP input, as the
+    # model's kernel path does, against the contiguous launch and the
+    # concatenation it replaces
+    ld = wd.deep_in_stride
+    head = wcfg.n_sparse * wcfg.embed_dim
+    mlp_in = torch.full((bb, ld), float("nan"), device=dev)
+    view = mlp_in[:, :head].view(bb, wcfg.n_sparse, wcfg.embed_dim)
+    embedding_bag_op(wd.table, deep_idx, deep_w, out=view)
+    log(f"    deep into the MLP input (G={wcfg.n_sparse}, ld={ld}): "
+        f"{launch_plan(wd.table, deep_idx, deep_w, view)}")
+    if not torch.equal(view.reshape(-1, wcfg.embed_dim),
+                       embedding_bag_op(wd.table, deep_idx, deep_w)):
+        fail("embedding_bag deep into the MLP input differs from the contiguous launch")
+    if not torch.isnan(mlp_in[:, head:]).all():
+        fail("embedding_bag deep into the MLP input wrote past its head")
+    strided_ms = cuda_ms(torch, lambda: embedding_bag_op(wd.table, deep_idx, deep_w, out=view))
+    flat, dense_b = view.reshape(bb, head).contiguous(), torch.rand((bb, wcfg.n_dense), device=dev)
+    cat_ms = cuda_ms(torch, lambda: torch.cat([flat, dense_b], dim=-1))
+    log(f"    deep into the MLP input {strided_ms:.4f} ms; the torch.cat it replaces "
+        f"{cat_ms:.4f} ms")
+    del mlp_in, view, flat, dense_b
+    # a ragged launch: serve_bulk's deep bags minus 17, K = 3 Zipf ids, random weights
+    # (the serve shapes are multiples of every tile the kernel picks)
+    rb = bb * wcfg.n_sparse - 17
+    ids = rows.reshape(-1)
+    ridx = torch.stack([ids[:rb], ids[5 : 5 + rb], ids[17 : 17 + rb]], dim=1)
+    rw = torch.rand((rb, 3), generator=gen, device=dev)
+    tag = f"embedding_bag f32 ragged (V={wd.table.shape[0]}, D={wcfg.embed_dim}, B={rb}, K=3)"
+    out_k = embedding_bag_op(wd.table, ridx, rw)
+    log(f"    ragged: {launch_plan(wd.table, ridx, rw, out_k)}")
+    b5["err"] = max(b5["err"], check_close(np, tag, out_k, embedding_bag_ref(wd.table, ridx, rw),
+                                           F32_TOL))
+    check_close(np, tag + " vs F.embedding_bag", out_k, torch.nn.functional.embedding_bag(
+        ridx, wd.table, mode="sum", per_sample_weights=rw), F32_TOL)
+    if not torch.equal(out_k, embedding_bag_op(wd.table, ridx, rw)):
+        fail(f"{tag}: two launches gave different bytes")
+    log(f"    ragged kernel {cuda_ms(torch, lambda: embedding_bag_op(wd.table, ridx, rw)):.4f} ms")
+    del deep_idx, deep_w, wide_w, rows, ids, ridx, rw, out_k
 
     # ------------------------------------ 9. GCN full-graph inference
     log("== phase 9: GCN full-graph inference, gcn-cora at ogb_products widths")
@@ -1503,6 +1549,15 @@ def main() -> int:
     wd_counts = launch_counts()
     if sum(wd_counts.values()) != wd_counts["embedding_bag"]:
         fail(f"Wide & Deep launched other kernels: {wd_counts}")
+    rows_b, dense_b = wd.rows(bulk["sparse"]), wd._dense(bulk["dense"])
+    deep_in = wd._deep_in(rows_b, dense_b)
+    wd.use_kernel = False
+    if not torch.equal(deep_in, wd._deep_in(rows_b, dense_b)):
+        fail("serve_bulk: the deep input written in place differs from the plain path's torch.cat")
+    wd.use_kernel = True
+    log(f"  serve_bulk deep input {tuple(deep_in.shape)}, row stride {deep_in.stride(0)}: "
+        "written in place, equal to the plain path's torch.cat")
+    del rows_b, dense_b, deep_in
     expect = {"serve_p99": (512,), "serve_bulk": (bb,), "retrieval_cand": (n_cand,)}
     for name, fn in calls.items():
         out = outs[name]
@@ -1529,7 +1584,12 @@ def main() -> int:
         "resident)")
     if peak < table_bytes:
         fail(f"peak device memory {peak} below the table's {table_bytes} bytes")
-    trace_solve(torch, "Wide & Deep serve_bulk call", calls["serve_bulk"])
+    _, _, by_name = trace_solve(torch, "Wide & Deep serve_bulk call", calls["serve_bulk"])
+    cats = [name for name in by_name if "Cat" in name]
+    if cats:
+        fail(f"serve_bulk on the kernel path concatenated on the card: {cats}")
+    b5_us = sum(t for name, (t, _) in by_name.items() if "bag_" in name)
+    log(f"  serve_bulk trace: embedding_bag kernels {b5_us / 1e3:.3f} ms, no concatenation")
     del wd, serve, score, calls, cand, outs, p, wide_tab  # the bound methods hold the table
     torch.cuda.empty_cache()
 

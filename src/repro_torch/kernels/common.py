@@ -49,6 +49,16 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def widest_vector(elem: int, lengths, ptrs) -> int:
+    """Elements per lane of the widest access of at most 16 bytes that
+    every row length (in elements) and every address (in bytes) keep
+    aligned: 4/2/1 in f32, 8/4/2/1 in bf16."""
+    vec = 16 // elem
+    while vec > 1 and (any(n % vec for n in lengths) or any(p % (vec * elem) for p in ptrs)):
+        vec //= 2
+    return vec
+
+
 def pick_block(dim: int, preferred: int, align: int = 8) -> int:
     """Largest hardware-friendly block ≤ preferred that keeps the grid
     covering ``dim`` without a ragged tail when possible."""

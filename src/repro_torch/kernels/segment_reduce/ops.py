@@ -23,6 +23,7 @@ from repro_torch.kernels.common import (
     load_library,
     on_cpu,
     stream_handle,
+    widest_vector,
 )
 from repro_torch.kernels.segment_reduce.ref import (
     csr_aggregate_ref,
@@ -83,11 +84,7 @@ def _bucket_rows_per_block(m: int, d: int, live: Optional[LiveRows]) -> int:
 def vector_width(F: torch.Tensor) -> int:
     """Columns per lane of the round kernels: the widest access of at most
     16 bytes that F's row length and address keep aligned."""
-    size = F.element_size()
-    vec = 16 // size
-    while vec > 1 and (F.shape[1] % vec or F.data_ptr() % (vec * size)):
-        vec //= 2
-    return vec
+    return widest_vector(F.element_size(), (F.shape[1],), (F.data_ptr(),))
 
 
 def aggregate_lanes(s: int, vec: int) -> int:

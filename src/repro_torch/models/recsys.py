@@ -11,6 +11,9 @@ it for them:
 * wide: ``wide_table[rows].sum(-1)`` is one bag of ``n_sparse`` slots per
   example over the ``(V, 1)`` wide table.
 
+On the kernel path the deep lookup is written in place into the MLP's
+input (:meth:`WideDeep._deep_in`), where the reference concatenates.
+
 The kernel gathers unchecked, so the entry points take the ids as numpy
 (as ``sample_ctr_batch`` gives them) and range-check them once on the
 host (:meth:`WideDeep.rows`).  The MLP and the retrieval product are
@@ -31,7 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.common import MAX_INT32
+from repro_torch.kernels.common import MAX_INT32, round_up
 from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
 from repro_torch.models.common import dense_init, embed_init, mlp
 
@@ -135,17 +138,43 @@ class WideDeep(nn.Module):
         )
 
     # ------------------------------------------------------------ lookups
-    def _bag(self, table, idx):
-        bag = embedding_bag_op if self.use_kernel else embedding_bag_ref
-        return bag(table, idx, torch.ones(idx.shape, dtype=table.dtype, device=idx.device))
+    def _bag(self, table, idx, out=None):
+        w = torch.ones(idx.shape, dtype=table.dtype, device=idx.device)
+        if not self.use_kernel:
+            return embedding_bag_ref(table, idx, w)
+        return embedding_bag_op(table, idx, w, out=out)
 
     def embed(self, rows: torch.Tensor) -> torch.Tensor:
         """The deep lookup ``table[rows]`` flattened to ``(B, F·D)``: one
         bag of one slot of weight 1.0 per (example, field)."""
         return self._bag(self.table, rows.reshape(-1, 1)).reshape(rows.shape[0], -1)
 
+    @property
+    def deep_in_stride(self) -> int:
+        """Row stride of the MLP input on the kernel path: ``deep_in``
+        padded to 16 bytes (1,296 for ``FULL``'s 1,293 f32 values)."""
+        return round_up(self.cfg.deep_in, 16 // self.table.element_size())
+
     def _deep_in(self, rows: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
-        return torch.cat([self.embed(rows), dense], dim=-1)
+        """The MLP's input ``[embed(rows) | dense]``, ``(B, deep_in)``.
+
+        The kernel path writes the deep lookup in place: one buffer whose
+        row stride is ``deep_in`` padded to 16 bytes (so each field's row
+        lands 16-byte aligned), the lookup into its ``F·D`` head, the dense
+        features into its tail, and the MLP reads the unpadded view (its
+        matrix product takes the row stride as it is, no copy).  The plain
+        path concatenates.
+        """
+        if not self.use_kernel:
+            return torch.cat([self.embed(rows), dense], dim=-1)
+        cfg = self.cfg
+        b, f = rows.shape
+        head = f * cfg.embed_dim
+        buf = torch.empty((b, self.deep_in_stride), dtype=self.table.dtype,
+                          device=self.table.device)
+        self._bag(self.table, rows.reshape(-1, 1), out=buf[:, :head].view(b, f, cfg.embed_dim))
+        buf[:, head : cfg.deep_in].copy_(dense)
+        return buf[:, : cfg.deep_in]
 
     # ------------------------------------------------------------ outputs
     def forward(self, rows: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
