@@ -80,14 +80,33 @@ Phases (each raises on failure, so the script exits non-zero):
     ``prefill_32k`` (batch 1) and ``decode_32k`` (batch 128, a 4,096-slot
     cache filled by 3,968-token prefills, 64 greedy steps), walls, tokens/s,
     peak memory, one traced call of each, and the plain prefill's gap;
-11. the kernel list: launches of each kernel on its path (phases 4-5 for
-    ``csr_round_residual`` and ``lp_round``, phase 6 for ``csr_round``,
-    phase 9 for ``csr_aggregate``, phase 10 for ``embedding_bag``, phase
-    10c for ``flash_attention``; all must be non-zero), with the phase 3,
-    8 and 10a measurements;
-12. the result line.
+11. the normal entry point: (a) ``python -m repro_torch run`` on
+    ``examples/specs/quickstart_run.json`` without its ``obs`` section, as
+    a subprocess on the card (artifacts under ``results/chip_smoke/``), its
+    solve ranking and rounds equal to an in-process CPU ``Session`` of the
+    same spec and its recovery metrics within 5e-3; (b) the serve
+    configuration ``powerlaw_serve_kernel`` (``SERVE_SPEC``: phase 4's
+    network, the ``kernel`` engine, recovery eval, a 2 s diurnal trace of
+    352 queries at 200 qps) through ``Session.run``: the solve held to the
+    torch-op ``sparse`` engine (equal rounds and top-10, max|ΔF| ≤ 5e-3),
+    every query answered and none rejected, ``csr_round_residual``
+    launched by serve's early-exit loop, 64 queries one by one on the
+    ``kernel`` and ``sparse`` serve engines with equal top-10 lists, rounds
+    and sources; ``csr_round_residual`` at each width the early-exit loop
+    pads to (1 to 32 columns) on every bucket of the plan, through
+    ``out=`` slices as ``_plan_round`` launches it, held to its plain
+    version at the f32 tolerance; stage times, qps, latency percentiles
+    and one traced replay;
+12. the kernel list: launches of each kernel on its path (phases 4-5 and
+    the serve stage of phase 11 for ``csr_round_residual``, phases 4-5 for
+    ``lp_round``, phase 6 for ``csr_round``, phase 9 for
+    ``csr_aggregate``, phase 10 for ``embedding_bag``, phase 10c for
+    ``flash_attention``; all must be non-zero), with the phase 3, 8 and
+    10a measurements (``csr_round_residual``'s error also over phase 11's
+    serve widths);
+13. the result line.
 
-Phases 4, 6, 7, 9, 10 and 10c each also trace calls with
+Phases 4, 6, 7, 9, 10, 10c and 11 each also trace calls with
 ``torch.profiler`` (after one untraced warm-up call).
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -162,7 +181,7 @@ def cuda_ms(torch, fn, *, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_close(np, name, got, want, tol) -> float:
+def check_close(np, name, got, want, tol, *, quiet: bool = False) -> float:
     got = got.float().cpu().numpy()
     want = want.float().cpu().numpy()
     if got.shape != want.shape or not np.isfinite(got).all():
@@ -170,7 +189,8 @@ def check_close(np, name, got, want, tol) -> float:
     err = float(np.max(np.abs(got - want))) if got.size else 0.0
     if not np.allclose(got, want, **tol):
         fail(f"{name}: kernel disagrees with its plain version, max|Δ|={err}")
-    log(f"  {name}: max|Δ| vs plain = {err:.3e} (rtol={tol['rtol']}, atol={tol['atol']})")
+    if not quiet:
+        log(f"  {name}: max|Δ| vs plain = {err:.3e} (rtol={tol['rtol']}, atol={tol['atol']})")
     return err
 
 
@@ -786,6 +806,266 @@ def round_fault_checks(torch, np, tag, nbr, live, F, launch, plain) -> None:
     log(f"  {tag}: NaN in pad-named F row {pad_id} reaches the same {nan_rows} rows as the "
         f"plain version; planted fault 'pad slot left out' rejected")
     del F_nan
+
+
+# Phase 11: the serve configuration at full size (PERF.md §4), run through
+# the port's normal entry point on the `kernel` engine
+SERVE_SPEC = {
+    "run_id": "powerlaw_serve_kernel",
+    "network": {"kind": "scenario", "name": "powerlaw", "scale": 1.0, "seed": 0},
+    "solve": {"alg": "dhlp2", "sigma": 1e-4, "seed_mode": "fixed", "backend": "kernel",
+              "top_k": 10},
+    "eval": {"protocol": "recovery", "holdout_frac": 0.15, "max_entities": 16},
+    "serve": {"trace": "diurnal", "rate_qps": 200.0, "horizon_s": 2.0, "time_scale": 1.0,
+              "max_batch": 32, "top_k": 10},
+}
+SERVE_QUERIES = 352  # the diurnal trace at 200 qps over 2 s, seed 0, on powerlaw
+SYNC_QUERIES = 64  # sent one by one to the kernel and sparse serve engines
+# the early-exit loop's padded column widths at max_batch 32 (powers of two)
+SERVE_WIDTHS = tuple(1 << i for i in range(SERVE_SPEC["serve"]["max_batch"].bit_length()))
+CLI_DEVICE = "cuda"  # the device phase 11 (a) hands to `python -m repro_torch run`
+
+
+def serve_width_checks(torch, np, serve) -> float:
+    """Phase 11 (b): B1 at every width the serve engine's early-exit loop
+    gives it (``SERVE_WIDTHS``), on every bucket of the kernel engine's
+    plan, held to ``csr_round_residual_ref`` at ``F32_TOL``: each bucket
+    launched as ``_plan_round`` launches it (its rows written through
+    ``out=`` into a slice of one buffer), then one whole ``_plan_round``
+    (rows and the per-column residual).  Returns the worst error."""
+    from repro_torch.engine.sparse import _plan_round
+    from repro_torch.kernels.segment_reduce import (
+        csr_round_residual_op,
+        csr_round_residual_ref,
+        vector_width,
+    )
+
+    eng = serve._engine
+    buckets, perm, _ = eng._fused_plan(eng.prepare(serve.state.norm))
+    c = (1.0 - eng.config.alpha) ** 2
+    n = int(perm.numel())
+    rng = np.random.default_rng(19)
+    worst = 0.0
+    for s in SERVE_WIDTHS:
+        F = torch.as_tensor(rng.random((n, s), dtype=np.float32), device=perm.device)[perm]
+        base = torch.as_tensor(rng.random((n, s), dtype=np.float32), device=perm.device)[perm]
+        Fn = torch.empty_like(F)
+        want_rows, want_d, err_b, off = [], [], 0.0, 0
+        for nbr, wgt, live in buckets:
+            m = nbr.shape[0]
+            sl = slice(off, off + m)
+            _, dl = csr_round_residual_op(nbr, wgt, F, base[sl], F[sl], c=c, out=Fn[sl],
+                                          live=live)
+            o_p, d_p = csr_round_residual_ref(nbr, wgt, F, base[sl], F[sl], c)
+            tag = f"csr_round_residual serve width {s} bucket {nbr.shape[0]}x{nbr.shape[1]}"
+            err_b = max(err_b, check_close(np, tag, Fn[sl], o_p, F32_TOL, quiet=True),
+                        check_close(np, tag + " delta", dl.amax(dim=0, keepdim=True), d_p,
+                                    F32_TOL, quiet=True))
+            want_rows.append(o_p)
+            want_d.append(d_p)
+            off += m
+        got, got_d = _plan_round(buckets, F, base, c=c, use_kernel=True, storage="f32")
+        tag = f"csr_round_residual serve width {s}, _plan_round over {len(buckets)} buckets"
+        err = max(err_b, check_close(np, tag, got, torch.cat(want_rows), F32_TOL, quiet=True),
+                  check_close(np, tag + " delta", got_d, torch.cat(want_d).amax(dim=0),
+                              F32_TOL, quiet=True))
+        log(f"  csr_round_residual at serve width {s} (vec {vector_width(F)}): each of "
+            f"{len(buckets)} buckets through out= and one _plan_round, rows and residual "
+            f"max|Δ| vs plain {err:.3e} (rtol={F32_TOL['rtol']}, atol={F32_TOL['atol']})")
+        worst = max(worst, err)
+    return worst
+
+
+def quickstart_cli_check(np) -> None:
+    """Phase 11 (a): ``python -m repro_torch run`` on the quickstart spec
+    without its ``obs`` section (levels other than ``off`` are queue item
+    A.4), as a subprocess on ``CLI_DEVICE``, held to an in-process CPU
+    ``Session`` of the same spec: equal solve ranking and ``outer_iters``,
+    recovery metrics within ``AGREE_TOL``."""
+    import os
+
+    from repro_torch.api import RunSpec, Session
+
+    spec = json.loads((ROOT / "examples" / "specs" / "quickstart_run.json").read_text())
+    spec.pop("obs")
+    out_root = ROOT / "results" / "chip_smoke"
+    out_root.mkdir(parents=True, exist_ok=True)
+    spec_path = out_root / "quickstart_no_obs.json"
+    spec_path.write_text(json.dumps(spec, indent=1))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "run", str(spec_path), "--device", CLI_DEVICE,
+         "--results-root", str(out_root)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True,
+        text=True, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"python -m repro_torch run exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"  python -m repro_torch run quickstart (no obs) --device {CLI_DEVICE}: exit 0 in "
+        f"{wall:.1f} s (process start included)")
+    for line in proc.stdout.splitlines():
+        if "wrote" not in line:
+            log(f"    {line}")
+    run_dir = out_root / spec["run_id"]
+    solve = json.loads((run_dir / "solve.json").read_text())
+    ev = json.loads((run_dir / "eval.json").read_text())
+    serve = json.loads((run_dir / "serve.json").read_text())
+    arts = {a.kind: a for a in Session(RunSpec.from_dict(spec), device="cpu").run(write=False)}
+    want_s, want_e = arts["solve"], arts["eval"]
+    if (solve["ranking"]["candidates"] != want_s.ranking["candidates"]
+            or solve["outer_iters"] != want_s.outer_iters):
+        fail(f"quickstart solve: {solve['ranking']['candidates']} in {solve['outer_iters']} "
+             f"rounds vs the CPU Session's {want_s.ranking['candidates']} in "
+             f"{want_s.outer_iters}")
+    gaps = {k: abs(ev["metrics"][k] - v) for k, v in want_e.metrics.items()}
+    if max(gaps.values()) > AGREE_TOL:
+        fail(f"quickstart recovery metrics differ from the CPU Session's: {gaps}")
+    want_r = arts["serve"].report
+    if (serve["report"]["queries"] != want_r["queries"]
+            or serve["report"]["deltas_applied"] != want_r["deltas_applied"]):
+        fail(f"quickstart replay: {serve['report']['queries']} queries, "
+             f"{serve['report']['deltas_applied']} deltas vs the CPU Session's "
+             f"{want_r['queries']}, {want_r['deltas_applied']}")
+    log(f"  equal to the CPU Session: top-{len(solve['ranking']['candidates'])} "
+        f"{solve['ranking']['candidates']}, {solve['outer_iters']} rounds; recovery metrics "
+        f"max|Δ| {max(gaps.values()):.2e}; {want_r['queries']} queries and "
+        f"{want_r['deltas_applied']} deltas replayed by both")
+
+
+def entry_point_phase(torch, np, dev, bundle) -> dict:
+    """Phase 11: the port's normal entry point.  (a) the quickstart through
+    the CLI; (b) ``powerlaw_serve_kernel`` through ``Session.run`` on
+    ``bundle`` (phase 4's network): the solve held to the torch-op ``sparse``
+    engine, the replay of its 352 queries (B1 launched through serve's
+    early-exit loop), 64 queries one by one on the ``kernel`` and ``sparse``
+    serve engines, B1 at each of the loop's widths held to its plain
+    version, and one replay traced.  Returns B1's launches in the serve
+    stage and its worst error at the serve widths."""
+    from repro_torch.api import RunSpec, Session
+    from repro_torch.core import extract_outputs, topk_exclusive
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.scenarios import build_trace
+    from repro_torch.serve import QuerySpec, replay_trace
+
+    quickstart_cli_check(np)
+
+    log("== phase 11 (b): powerlaw_serve_kernel through Session.run on the kernel engine")
+    spec = RunSpec.from_dict(SERVE_SPEC)
+    sv = spec.serve
+    trace = build_trace(bundle, sv.trace, rate_qps=sv.rate_qps, horizon_s=sv.horizon_s,
+                        seed=spec.network.seed)
+    if len(trace) != SERVE_QUERIES:
+        fail(f"the {sv.trace} trace holds {len(trace)} queries, expected {SERVE_QUERIES}")
+    session = Session(spec, device=dev, bundle=bundle)
+    # the spec's sections in their order, with the launch counts read
+    # between the solve/eval stages and the serve stage
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arts = {a.kind: a for a in session.run(["solve", "eval"], write=False)}
+    torch.cuda.synchronize()
+    before = launch_counts()["csr_round_residual"]
+    arts.update((a.kind, a) for a in session.run(["serve"], write=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    b1_serve = counts["csr_round_residual"] - before
+    log(f"  Session.run: {wall:.3f} s; solve {arts['solve'].seconds:.3f} s, eval "
+        f"{arts['eval'].seconds:.3f} s, serve {arts['serve'].seconds:.3f} s; launches {counts}")
+    if counts["csr_round_residual"] <= 0 or b1_serve <= 0:
+        fail(f"csr_round_residual launched {counts['csr_round_residual']} times in the run, "
+             f"{b1_serve} in the serve stage")
+    others = {k: v for k, v in counts.items() if k != "csr_round_residual" and v}
+    if others:
+        fail(f"the kernel-engine session launched other kernels: {others}")
+
+    # the solve against the torch-op sparse engine on the card
+    res = arts["solve"]
+    sparse_spec = RunSpec.from_dict({**SERVE_SPEC, "solve": {**SERVE_SPEC["solve"],
+                                                             "backend": "sparse"}})
+    sparse_session = Session(sparse_spec, device=dev, bundle=bundle)
+    want = sparse_session.solve()
+    if launch_counts() != counts:
+        fail("the torch-op sparse session launched a CUDA kernel of the port")
+    n = bundle.network.num_nodes
+    if res.F.shape != (n, n) or not np.isfinite(res.F).all() or not res.converged:
+        fail(f"Session solve: shape {res.F.shape}, converged {res.converged}")
+    gap = float(np.max(np.abs(res.F - want.F)))
+    log(f"  solve: {res.outer_iters} rounds (sparse {want.outer_iters}); max|ΔF| vs sparse "
+        f"{gap:.3e} (gate {AGREE_TOL}); top-{len(res.ranking['candidates'])} of drug 0 "
+        f"{res.ranking['candidates']}")
+    if res.outer_iters != want.outer_iters or gap > AGREE_TOL:
+        fail(f"Session solve vs sparse: {res.outer_iters} vs {want.outer_iters} rounds, "
+             f"max|ΔF| {gap}")
+    if res.ranking["candidates"] != want.ranking["candidates"]:
+        fail(f"Session solve ranking {res.ranking['candidates']} vs sparse "
+             f"{want.ranking['candidates']}")
+    known = bundle.network.R[(0, 2)] > 0
+    compare_top10(top10_lists(np, topk_exclusive, extract_outputs, res.F, session.norm, known),
+                  top10_lists(np, topk_exclusive, extract_outputs, want.F, session.norm, known),
+                  "Session solve, kernel vs sparse")
+    m = arts["eval"].metrics
+    log(f"  eval: recovery_auc {m['recovery_auc']:.6f}, aupr {m['recovery_aupr']:.6f}, "
+        f"{int(m['outer_iters'])} rounds, {int(m['eval_entities'])} entities")
+    if not 0.5 < m["recovery_auc"] <= 1.0:
+        fail(f"recovery_auc {m['recovery_auc']}")
+
+    # the replay: every query answered; its submits block on a full queue,
+    # so a rejected or failed query would have raised out of the replay
+    r = arts["serve"].report
+    log(f"  replay: {r['queries']} / {len(trace)} queries answered, 0 rejected, "
+        f"{r['qps']:.1f} qps (offered {r['offered_qps']:.1f}), achieved/offered "
+        f"{r['achieved_vs_offered']:.3f}, mean batch {r['mean_batch_size']:.2f} in "
+        f"{r['batches']} batches, mean rounds {r['mean_rounds']:.2f}, sources {r['sources']}")
+    log(f"  latency p50 {r['p50'] * 1e3:.2f} ms, p95 {r['p95'] * 1e3:.2f} ms, p99 "
+        f"{r['p99'] * 1e3:.2f} ms; csr_round_residual launches in the serve stage {b1_serve}")
+    if r["queries"] != len(trace):
+        fail(f"replay answered {r['queries']} of {len(trace)} queries")
+
+    # 64 queries one by one on the kernel and sparse serve engines
+    kernel_serve = session.serve_engine()
+    sparse_serve = sparse_session.serve_engine()
+    worst, t_k, t_s, rounds = 0.0, 0.0, 0.0, 0
+    for i in range(SYNC_QUERIES):
+        q = QuerySpec(entity=int(trace.entity[i]), target_type=int(trace.target_type[i]),
+                      top_k=sv.top_k)
+        t0 = time.perf_counter()
+        got = kernel_serve.query(q)
+        t_k += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = sparse_serve.query(q)
+        t_s += time.perf_counter() - t0
+        rounds += got.rounds
+        gap = float(np.max(np.abs(got.scores - ref.scores))) if got.scores.size else 0.0
+        worst = max(worst, gap)
+        if (list(got.candidates) != list(ref.candidates) or gap > AGREE_TOL
+                or (got.rounds, got.source) != (ref.rounds, ref.source)):
+            fail(f"query {i} (entity {q.entity}): kernel {list(got.candidates)} in "
+                 f"{got.rounds} rounds ({got.source}) vs sparse {list(ref.candidates)} in "
+                 f"{ref.rounds} ({ref.source}), scores max|Δ| {gap}")
+    log(f"  {SYNC_QUERIES} queries one by one: kernel and sparse serve engines give equal "
+        f"top-{sv.top_k} lists, rounds and sources; scores max|Δ| {worst:.2e} (gate "
+        f"{AGREE_TOL}); {t_k:.3f} s on kernel, {t_s:.3f} s on sparse for {rounds} early-exit "
+        f"rounds ({t_k / max(rounds, 1) * 1e3:.2f} / {t_s / max(rounds, 1) * 1e3:.2f} ms a "
+        f"round, host clock, cache hits included)")
+    b1_err = serve_width_checks(torch, np, kernel_serve)
+
+    # one replay traced, after a warm-up replay (each on a fresh serve engine)
+    t_p, busy_us, by_name = trace_solve(
+        torch, "powerlaw_serve_kernel replay (2 s of diurnal trace)",
+        lambda: replay_trace(session.serve_engine(), trace, (), top_k=sv.top_k,
+                             time_scale=sv.time_scale))
+    b1_ms = sum(t for k, (t, _) in by_name.items() if "csr_round::round_kernel" in k) / 1e3
+    b1_n = sum(c for k, (_, c) in by_name.items() if "csr_round::round_kernel" in k)
+    htod = [(t, c) for k, (t, c) in by_name.items() if k.startswith("Memcpy HtoD")]
+    dtoh = [(t, c) for k, (t, c) in by_name.items() if k.startswith("Memcpy DtoH")]
+    log(f"  traced replay: B1 x{b1_n} {b1_ms:.2f} ms; HtoD x{sum(c for _, c in htod)} "
+        f"{sum(t for t, _ in htod) / 1e3:.2f} ms, DtoH x{sum(c for _, c in dtoh)} "
+        f"{sum(t for t, _ in dtoh) / 1e3:.2f} ms (the early-exit loop's per-round copies); "
+        f"busy {busy_us / 1e3:.1f} ms of {t_p:.3f} s")
+    del session, sparse_session, kernel_serve, sparse_serve, arts, want, res
+    return {"serve_b1": b1_serve, "b1_err": b1_err}
 
 
 def main() -> int:
@@ -1606,8 +1886,14 @@ def main() -> int:
     log("== phase 10c: h2o-danube-1.8b FULL serving in bf16 on the kernel path")
     serving = transformer_serving_phase(torch, np, dev)
 
-    # ------------------------------------------------ 11. the kernel list
-    log("== phase 11: kernels")
+    # ---------------------------------------------- 11. the entry point
+    log("== phase 11: the normal entry point (python -m repro_torch run, Session, serve)")
+    entry = entry_point_phase(torch, np, dev, bundle)
+
+    # ------------------------------------------------ 12. the kernel list
+    log("== phase 12: kernels")
+    counts["csr_round_residual"] += entry["serve_b1"]
+    b1_err = max(b1_err, entry["b1_err"])
     counts["csr_round"] = legacy_counts["csr_round"]
     counts["csr_aggregate"] = gcn_counts["csr_aggregate"]
     counts["embedding_bag"] = wd_counts["embedding_bag"]
@@ -1698,7 +1984,7 @@ def main() -> int:
     log(f"  total {time.perf_counter() - t_script:.1f} s")
     print(smi_name_and_limit(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # ----------------------------------------------------- 12. the result
+    # ----------------------------------------------------- 13. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

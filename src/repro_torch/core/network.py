@@ -329,6 +329,17 @@ class NormalizedNetwork:
             H[sl[j], sl[i]] = s.T
         return H, M
 
+    def assemble_effective(self, alpha: float) -> Tuple[np.ndarray, float]:
+        """Beyond-paper fused operator for DHLP-2 (DESIGN.md §2).
+
+        One DHLP-2 round ``F ← β(βF + αHF) + αMF`` equals
+        ``F ← β²F + A_eff @ F`` with ``A_eff = αβH + αM`` (disjoint support).
+        Returns ``(A_eff, β²)``.
+        """
+        beta = 1.0 - alpha
+        H, M = self.assemble_dense()
+        return alpha * beta * H + alpha * M, beta * beta
+
     # --------------------------------------------------------- COO assembly
     def to_coo(self) -> "HeteroCOO":
         H, M = self.assemble_dense()
@@ -385,6 +396,38 @@ class HeteroCOO:
     @property
     def num_edges(self) -> int:
         return int(self.het_src.shape[0] + self.hom_src.shape[0])
+
+    def pad_to(self, het_mult: int = 1024, hom_mult: int = 1024) -> "HeteroCOO":
+        """Pad edge arrays to a multiple so shapes are shard-friendly.
+
+        Padding edges point at a zero-weight self-loop on node 0, which is a
+        no-op under segment-sum (weight 0).
+        """
+
+        def _pad(src, dst, w, mult):
+            e = src.shape[0]
+            target = max(mult, ((e + mult - 1) // mult) * mult)
+            pad = target - e
+            if pad == 0:
+                return src, dst, w
+            return (
+                np.concatenate([src, np.zeros(pad, np.int32)]),
+                np.concatenate([dst, np.zeros(pad, np.int32)]),
+                np.concatenate([w, np.zeros(pad, np.float64)]),
+            )
+
+        hs, hd, hw = _pad(self.het_src, self.het_dst, self.het_w, het_mult)
+        ms, md, mw = _pad(self.hom_src, self.hom_dst, self.hom_w, hom_mult)
+        return HeteroCOO(
+            het_src=hs,
+            het_dst=hd,
+            het_w=hw,
+            hom_src=ms,
+            hom_dst=md,
+            hom_w=mw,
+            num_nodes=self.num_nodes,
+            sizes=self.sizes,
+        )
 
 
 def seeds_identity(num_nodes: int) -> np.ndarray:

@@ -78,3 +78,32 @@ def make_drugnet(spec: DrugNetSpec = DrugNetSpec()) -> DrugNet:
     return DrugNet(
         network=pk.network, clusters=pk.clusters, spec=spec, truth=pk.truth
     )
+
+
+def make_scaling_network(
+    num_edges: int, seed: int = 0
+) -> DrugNet:
+    """Network sized to hit approximately ``num_edges`` total edges —
+    the knob the paper's Tables 5/6 sweep from 1M to 20M.
+
+    Edge count is dominated by the similarity matrices (intra-cluster
+    cliques): |E| ≈ Σ_types n·(n/k)·sim_density + associations.  It solves
+    for n given the default density parameters.
+    """
+    spec0 = DrugNetSpec(seed=seed)
+    # per-type intra-cluster clique edges ≈ n²/k; three types with the
+    # default drug:disease:target ratio r = (223, 150, 95)/223
+    r = np.array([223.0, 150.0, 95.0]) / 223.0
+    k = spec0.n_clusters
+    # total ≈ Σ (r_i·n)²/k  + assoc ≈ p_intra·Σ_pairs r_i r_j n²/k
+    a = (r ** 2).sum() / k
+    pairs = [(0, 1), (0, 2), (1, 2)]
+    b = spec0.p_intra * sum(r[i] * r[j] for i, j in pairs) / k
+    n_drug = int(np.sqrt(num_edges / (a + b)))
+    spec = DrugNetSpec(
+        n_drug=n_drug,
+        n_disease=int(n_drug * r[1]),
+        n_target=int(n_drug * r[2]),
+        seed=seed,
+    )
+    return make_drugnet(spec)

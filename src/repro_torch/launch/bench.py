@@ -1,0 +1,18 @@
+"""REMOVED entry point — see :mod:`repro_torch.launch._removed`.
+
+``python -m repro_torch.launch.bench`` was a deprecation shim over the unified
+driver; the migration window has closed.  Use ``python -m repro_torch run``
+(RunSpec, DESIGN.md §13) or ``python -m repro_torch bench`` (legacy flags).
+"""
+
+from __future__ import annotations
+
+from repro_torch.launch._removed import removed_main
+
+
+def main() -> None:
+    removed_main("bench")
+
+
+if __name__ == "__main__":
+    main()

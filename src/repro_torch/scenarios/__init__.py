@@ -1,11 +1,19 @@
 """Scenario & workload subsystem (DESIGN.md §12).
 
 Named generators of heterogeneous-network workloads: each produces a
-:class:`ScenarioBundle` — network + planted truth — behind a string-keyed
-registry.  The numpy RNG streams are those of ``repro.scenarios``, so a
-``(name, scale, seed)`` gives bit-identical networks in both packages.
+:class:`ScenarioBundle` — network + planted truth + optional delta
+stream + optional serve query trace — behind a string-keyed registry,
+so eval, serving, and the ``repro_torch scenario`` CLI all name workloads
+the same way the engine registry names backends.  The numpy RNG streams
+are those of ``repro.scenarios``, so a ``(name, scale, seed)`` gives
+bit-identical bundles in both packages.
 """
-
+from repro_torch.scenarios.arrivals import (
+    ARRIVAL_PROCESSES,
+    arrival_times,
+    build_trace,
+    zipf_entities,
+)
 from repro_torch.scenarios.base import (
     CACHE_MIN_EDGES,
     QueryTrace,
@@ -41,6 +49,7 @@ from repro_torch.scenarios.generators import (
 from repro_torch.scenarios import library as _library  # noqa: F401,E402
 
 __all__ = [
+    "ARRIVAL_PROCESSES",
     "CACHE_MIN_EDGES",
     "KPartiteSpec",
     "PlantedKPartite",
@@ -49,8 +58,10 @@ __all__ = [
     "ScenarioBundle",
     "ScenarioInfo",
     "TimedDelta",
+    "arrival_times",
     "available_scenarios",
     "backend_solver_fn",
+    "build_trace",
     "cache_dir",
     "cache_path",
     "default_lp_config",
@@ -65,4 +76,5 @@ __all__ = [
     "scenario_cross_validate",
     "sizes_for_edges",
     "solve_recovery",
+    "zipf_entities",
 ]

@@ -8,8 +8,8 @@ A *scenario* is everything one experiment needs, bundled:
   recovery protocols score against),
 * optionally a timed :class:`~repro_torch.core.network.GraphDelta` stream (the
   serve layer's incremental-update workload), and
-* optionally a serve query trace (the arrival processes that fill it are
-  not ported yet).
+* optionally a serve query trace with a configurable arrival process
+  (``repro_torch.scenarios.arrivals``).
 
 Builders register under a string key with
 ``@register_scenario("name", description=...)`` and have signature

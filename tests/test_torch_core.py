@@ -55,9 +55,10 @@ def test_generated_networks_bit_identical(name):
 
 
 def test_scenario_registry_holds_the_ported_scenarios():
-    ported = {"bio_tri", "bipartite", "kpartite5", "kpartite_heterophilic", "powerlaw"}
+    ported = {"bio_tri", "bipartite", "kpartite5", "kpartite_heterophilic", "powerlaw",
+              "streaming", "streaming_chaos"}
     assert set(ts.available_scenarios()) == ported
-    assert ported <= set(rs.available_scenarios())
+    assert set(rs.available_scenarios()) == ported  # every scenario is ported
 
 
 def test_normalize_blocks_identical(bio):
