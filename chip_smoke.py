@@ -81,9 +81,12 @@ Phases (each raises on failure, so the script exits non-zero):
     cache filled by 3,968-token prefills, 64 greedy steps), walls, tokens/s,
     peak memory, one traced call of each, and the plain prefill's gap;
 11. the normal entry point: (a) ``python -m repro_torch run`` on
-    ``examples/specs/quickstart_run.json`` without its ``obs`` section, as
-    a subprocess on the card (artifacts under ``results/chip_smoke/``), its
-    solve ranking and rounds equal to an in-process CPU ``Session`` of the
+    ``examples/specs/quickstart_run.json`` as it is (its ``obs`` section
+    too), as a subprocess on the card (artifacts under
+    ``results/chip_smoke/``), then ``python -m repro_torch obs quickstart
+    --validate``: the four telemetry artifacts and no live segment,
+    schema-valid, one ``solve.residual`` sample per superstep; its solve
+    ranking and rounds equal to an in-process CPU ``Session`` of the
     same spec and its recovery metrics within 5e-3; (b) the serve
     configuration ``powerlaw_serve_kernel`` (``SERVE_SPEC``: phase 4's
     network, the ``kernel`` engine, recovery eval, a 2 s diurnal trace of
@@ -96,10 +99,24 @@ Phases (each raises on failure, so the script exits non-zero):
     pads to (1 to 32 columns) on every bucket of the plan, through
     ``out=`` slices as ``_plan_round`` launches it, held to its plain
     version at the f32 tolerance; stage times, qps, latency percentiles
-    and one traced replay;
+    and one traced replay; (c) ``powerlaw_obs_kernel``, the same spec with
+    the quickstart's ``obs`` section: the observed solve (a host loop of
+    ``engine.round``, B1 on every bucket each superstep) held to phase 4
+    (equal supersteps and top-10, max|ΔF| ≤ 5e-3), the SLO-watched replay
+    answering 352 / 352, the telemetry valid and ``metrics.prom``
+    lint-clean; (d) ``powerlaw_profile_kernel`` at ``obs.level
+    "profile"`` through ``Session.run``, and the same solve on the legacy
+    layout through ``observed_solve`` under the kernel hook and
+    ``profile_phase``: the hook's B1 (B3) calls equal to the plan's 19
+    (the layout's 47) buckets × supersteps and to the B1 (B3) kernels in
+    the Chrome trace; (e) ``powerlaw_crashdrill_kernel``, the spec with
+    ``crashdrill_run.json``'s ``ft`` section: the first run dies at
+    superstep 3, ``python -m repro_torch run --resume`` completes it, and
+    its final F equals a clean checkpointed run's bit for bit, with the
+    serve fault retried and every query answered;
 12. the kernel list: launches of each kernel on its path (phases 4-5 and
-    the serve stage of phase 11 for ``csr_round_residual``, phases 4-5 for
-    ``lp_round``, phase 6 for ``csr_round``, phase 9 for
+    phase 11 (b)-(e) for ``csr_round_residual``, phases 4-5 for
+    ``lp_round``, phases 6 and 11 (d) for ``csr_round``, phase 9 for
     ``csr_aggregate``, phase 10 for ``embedding_bag``, phase 10c for
     ``flash_attention``; all must be non-zero), with the phase 3, 8 and
     10a measurements (``csr_round_residual``'s error also over phase 11's
@@ -213,6 +230,20 @@ def wall_s(torch, fn, *, iters: int) -> list:
     return times
 
 
+def union_us(intervals) -> float:
+    """Length of the union of ``(start, stop)`` intervals (µs): the
+    device's busy time."""
+    busy, end = 0.0, None
+    for start, stop in sorted(intervals):
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy
+
+
 def trace_solve(torch, label: str, fn):
     """Run ``fn`` twice under ``torch.profiler``, recording the second
     run; print its wall time, the device's busy time (the union of its
@@ -250,14 +281,7 @@ def trace_solve(torch, label: str, fn):
     # the step's own annotation spans the whole step on the device timeline
     events = [e for e in recorded[0] if e.device_type != DeviceType.CPU
               and not e.name.startswith("ProfilerStep")]
-    busy_us, end = 0.0, None
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
-        if end is None or start > end:
-            busy_us += stop - start
-            end = stop
-        elif stop > end:
-            busy_us += stop - end
-            end = stop
+    busy_us = union_us((e.time_range.start, e.time_range.end) for e in events)
     by_name = {}
     for e in events:
         total, count = by_name.get(e.name, (0.0, 0))
@@ -876,39 +900,104 @@ def serve_width_checks(torch, np, serve) -> float:
     return worst
 
 
-def quickstart_cli_check(np) -> None:
-    """Phase 11 (a): ``python -m repro_torch run`` on the quickstart spec
-    without its ``obs`` section (levels other than ``off`` are queue item
-    A.4), as a subprocess on ``CLI_DEVICE``, held to an in-process CPU
-    ``Session`` of the same spec: equal solve ranking and ``outer_iters``,
-    recovery metrics within ``AGREE_TOL``."""
+OUT_ROOT = ROOT / "results" / "chip_smoke"  # phase 11's run directories (git ignores results/)
+TEL_FILES = ["events.jsonl", "metrics.jsonl", "metrics.prom", "summary.json"]
+
+
+def quiet(_line) -> None:
+    pass
+
+
+def run_cli(args, *, timeout=600):
+    """``python -m repro_torch <args>`` from the checkout; returns the
+    finished process and its wall (s), process start included."""
     import os
 
-    from repro_torch.api import RunSpec, Session
-
-    spec = json.loads((ROOT / "examples" / "specs" / "quickstart_run.json").read_text())
-    spec.pop("obs")
-    out_root = ROOT / "results" / "chip_smoke"
-    out_root.mkdir(parents=True, exist_ok=True)
-    spec_path = out_root / "quickstart_no_obs.json"
-    spec_path.write_text(json.dumps(spec, indent=1))
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch", "run", str(spec_path), "--device", CLI_DEVICE,
-         "--results-root", str(out_root)],
-        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True,
-        text=True, timeout=600,
+        [sys.executable, "-m", "repro_torch", *args], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True, text=True,
+        timeout=timeout,
     )
-    wall = time.perf_counter() - t0
+    return proc, time.perf_counter() - t0
+
+
+def fresh_run_dir(run_id) -> Path:
+    """``OUT_ROOT/run_id`` emptied: a stale checkpoint would turn a first
+    run into a resumed one."""
+    import shutil
+
+    path = OUT_ROOT / run_id
+    shutil.rmtree(path, ignore_errors=True)
+    OUT_ROOT.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def check_telemetry(run_dir: Path, what: str) -> dict:
+    """The run's telemetry directory: exactly the four artifacts (no live
+    segment left), schema-valid, ``metrics.prom`` lint-clean, and one
+    ``solve.residual`` sample per ``solve.supersteps``.  Returns the
+    digest."""
+    from repro_torch.obs import lint_openmetrics, validate_dir
+    from repro_torch.obs.summary import load_dir, summarize
+
+    tel_dir = run_dir / "telemetry"
+    names = sorted(n for n in tel_dir.iterdir() if n.is_file())
+    if [n.name for n in names] != TEL_FILES:
+        fail(f"{what}: telemetry holds {[n.name for n in names]}, expected {TEL_FILES}")
+    counts = validate_dir(str(tel_dir))
+    problems = lint_openmetrics((tel_dir / "metrics.prom").read_text())
+    if problems:
+        fail(f"{what}: metrics.prom fails the OpenMetrics lint: {problems}")
+    digest = summarize(*load_dir(str(tel_dir)))
+    steps = digest["counters"].get("solve.supersteps")
+    conv = digest.get("convergence", {})
+    if not steps or conv.get("supersteps") != steps:
+        fail(f"{what}: {conv.get('supersteps')} solve.residual samples for "
+             f"solve.supersteps {steps}")
+    log(f"  {what} telemetry: {' '.join(TEL_FILES)}, schema ok "
+        f"({' '.join(f'{k}:{v}' for k, v in sorted(counts.items()))}), metrics.prom lint-clean; "
+        f"solve.residual {steps} samples for {steps} supersteps, "
+        f"{conv['first_residual']:.3e} -> {conv['last_residual']:.3e}")
+    return digest
+
+
+def quickstart_cli_check(np) -> None:
+    """Phase 11 (a): ``python -m repro_torch run`` on the committed
+    quickstart spec as it is (its ``obs`` section: level ``metrics``, a
+    0.25 s streaming flush, OpenMetrics export, an SLO block), as a
+    subprocess on ``CLI_DEVICE``, then ``python -m repro_torch obs
+    quickstart --validate``.  The telemetry must be whole and valid
+    (``check_telemetry``), and the run equal to an in-process CPU
+    ``Session`` of the same spec: solve ranking and ``outer_iters``,
+    recovery metrics within ``AGREE_TOL``, queries and deltas replayed."""
+    from repro_torch.api import RunSpec, Session
+
+    spec_path = ROOT / "examples" / "specs" / "quickstart_run.json"
+    spec = json.loads(spec_path.read_text())
+    run_dir = fresh_run_dir(spec["run_id"])
+    proc, wall = run_cli(["run", str(spec_path), "--device", CLI_DEVICE,
+                          "--results-root", str(OUT_ROOT)])
     if proc.returncode != 0:
         fail(f"python -m repro_torch run exited {proc.returncode}: {proc.stderr[-2000:]}")
-    log(f"  python -m repro_torch run quickstart (no obs) --device {CLI_DEVICE}: exit 0 in "
-        f"{wall:.1f} s (process start included)")
+    log(f"  python -m repro_torch run examples/specs/quickstart_run.json --device {CLI_DEVICE}: "
+        f"exit 0 in {wall:.1f} s (process start included)")
     for line in proc.stdout.splitlines():
         if "wrote" not in line:
             log(f"    {line}")
-    run_dir = out_root / spec["run_id"]
+    obs, obs_wall = run_cli(["obs", spec["run_id"], "--validate", "--results-root",
+                             str(OUT_ROOT)])
+    if obs.returncode != 0:
+        fail(f"python -m repro_torch obs {spec['run_id']} --validate exited "
+             f"{obs.returncode}: {obs.stderr[-2000:]}")
+    log(f"  python -m repro_torch obs {spec['run_id']} --validate: exit 0 in {obs_wall:.1f} s")
+    for line in obs.stdout.splitlines()[:4]:
+        log(f"    {line}")
     solve = json.loads((run_dir / "solve.json").read_text())
+    digest = check_telemetry(run_dir, "quickstart")
+    if digest["convergence"]["supersteps"] != solve["outer_iters"]:
+        fail(f"quickstart: {digest['convergence']['supersteps']} supersteps in the telemetry, "
+             f"{solve['outer_iters']} in solve.json")
     ev = json.loads((run_dir / "eval.json").read_text())
     serve = json.loads((run_dir / "serve.json").read_text())
     arts = {a.kind: a for a in Session(RunSpec.from_dict(spec), device="cpu").run(write=False)}
@@ -930,18 +1019,276 @@ def quickstart_cli_check(np) -> None:
     log(f"  equal to the CPU Session: top-{len(solve['ranking']['candidates'])} "
         f"{solve['ranking']['candidates']}, {solve['outer_iters']} rounds; recovery metrics "
         f"max|Δ| {max(gaps.values()):.2e}; {want_r['queries']} queries and "
-        f"{want_r['deltas_applied']} deltas replayed by both")
+        f"{want_r['deltas_applied']} deltas replayed by both; watchdog "
+        f"{serve['slo'].get('windows')} windows, {serve['slo'].get('breaches')} breaches")
 
 
-def entry_point_phase(torch, np, dev, bundle) -> dict:
+def trace_device_stats(path: Path) -> dict:
+    """A Chrome trace (``torch.profiler``'s export) read back: device
+    kernels by name (count, µs), the union of the device's kernel, copy
+    and set intervals (µs) and the span of the ``phase:*`` range (µs)."""
+    trace = json.loads(path.read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels, intervals, phase_us = {}, [], 0.0
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat", "")
+        if cat == "kernel":
+            n, us = kernels.get(e["name"], (0, 0.0))
+            kernels[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)))
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            intervals.append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))))
+        if cat == "user_annotation" and e.get("name", "").startswith("phase:"):
+            phase_us = max(phase_us, float(e.get("dur", 0.0)))
+    return {"kernels": kernels, "busy_us": union_us(intervals), "phase_us": phase_us}
+
+
+def round_kernel_launches(kernels: dict, residual: bool) -> tuple:
+    """B1 (``residual``) or B3 entries of ``trace_device_stats``: the
+    shared template ``csr_round::round_kernel<T, Out, VEC, kResidual, ...>``."""
+    flag = ", true," if residual else ", false,"
+    hits = [(n, us) for name, (n, us) in kernels.items()
+            if "csr_round::round_kernel" in name and flag in name]
+    return sum(n for n, _ in hits), sum(us for _, us in hits)
+
+
+def obs_phase(torch, np, dev, bundle, main_solve, serve_qps) -> int:
+    """Phase 11 (c): ``powerlaw_obs_kernel``, ``SERVE_SPEC`` with the
+    quickstart's ``obs`` section verbatim, through ``Session.run`` (written
+    under ``OUT_ROOT``): the observed solve on B1 held to phase 4's
+    ``engine.run`` (equal supersteps and top-10, max|ΔF| ≤ ``AGREE_TOL``),
+    352 / 352 queries answered, the telemetry whole and valid.  Prints the
+    watchdog's windows and breaches and the replay qps beside (b)'s.
+    Returns B1's launches."""
+    from repro_torch.api import RunSpec, Session
+    from repro_torch.core import extract_outputs, topk_exclusive
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    quick = json.loads((ROOT / "examples" / "specs" / "quickstart_run.json").read_text())
+    spec = {**SERVE_SPEC, "run_id": "powerlaw_obs_kernel", "obs": quick["obs"]}
+    run_dir = fresh_run_dir(spec["run_id"])
+    session = Session(RunSpec.from_dict(spec), results_root=str(OUT_ROOT), device=dev,
+                      bundle=bundle)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wrote = []  # (host clock, line) of each file the run writes
+    arts = {a.kind: a for a in session.run(
+        echo=lambda line: wrote.append((time.perf_counter(), line.rsplit("/", 1)[-1])))}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"  Session.run (obs level metrics, 0.25 s flush, SLO): {wall:.3f} s; solve "
+        f"{arts['solve'].seconds:.3f} s (observed, host f64 loop), eval "
+        f"{arts['eval'].seconds:.3f} s, serve {arts['serve'].seconds:.3f} s; launches {counts}")
+    log("  host clock at each written file, from the start of the run: " + ", ".join(
+        f"{name} {t - t0:.2f} s" for t, name in wrote))
+    if counts["csr_round_residual"] <= 0:
+        fail("powerlaw_obs_kernel launched csr_round_residual no time")
+    others = {k: v for k, v in counts.items() if k != "csr_round_residual" and v}
+    if others:
+        fail(f"powerlaw_obs_kernel launched other kernels: {others}")
+    res = arts["solve"]
+    gap = float(np.max(np.abs(res.F - main_solve.F)))
+    log(f"  observed solve: {res.outer_iters} supersteps (engine.run {main_solve.outer_iters}), "
+        f"max|ΔF| vs phase 4's engine.run {gap:.3e} (gate {AGREE_TOL}), "
+        f"{res.seconds / res.outer_iters * 1e3:.1f} ms a superstep")
+    if res.outer_iters != main_solve.outer_iters or gap > AGREE_TOL or not res.converged:
+        fail(f"observed solve vs engine.run: {res.outer_iters} vs {main_solve.outer_iters} "
+             f"supersteps, max|ΔF| {gap}, converged {res.converged}")
+    known = bundle.network.R[(0, 2)] > 0
+    compare_top10(
+        top10_lists(np, topk_exclusive, extract_outputs, res.F, session.norm, known),
+        top10_lists(np, topk_exclusive, extract_outputs, main_solve.F, session.norm, known),
+        "observed solve vs engine.run")
+    r = arts["serve"].report
+    if r["queries"] != SERVE_QUERIES:
+        fail(f"powerlaw_obs_kernel replay answered {r['queries']} of {SERVE_QUERIES}")
+    digest = check_telemetry(run_dir, "powerlaw_obs_kernel")
+    if digest["convergence"]["supersteps"] != res.outer_iters:
+        fail("powerlaw_obs_kernel: the telemetry's supersteps differ from the solve's")
+    slo = arts["serve"].slo
+    log(f"  replay: {r['queries']} / {SERVE_QUERIES} answered, {r['qps']:.1f} qps at level "
+        f"metrics (phase 11 (b), level off: {serve_qps:.1f}), p50 {r['p50'] * 1e3:.2f} ms, "
+        f"p99 {r['p99'] * 1e3:.2f} ms; watchdog {slo['windows']} windows, {slo['breaches']} "
+        f"breaches, {slo['recoveries']} recoveries, degradation level "
+        f"{slo['degradation_level']} (not gated)")
+    return counts["csr_round_residual"]
+
+
+def profiled_solve_check(np, tag, res, metrics, trace_dir, launches, residual, buckets,
+                         main_solve, phase3_ms, wall) -> None:
+    """Phase 11 (d), one profiled solve: the hook's calls of B1
+    (``residual``) or B3 = the wrapper's launches = the kernels in the
+    Chrome trace = ``buckets`` × supersteps, and the solve held to phase 4.
+    Prints the hooked launch times beside phase 3's and the trace's device
+    busy share."""
+    name = "csr_round_residual" if residual else "csr_round"
+    calls = metrics.peek(f"kernel.{name}.kernel.calls")
+    hist = metrics.peek(f"kernel.{name}.kernel.latency_s")
+    stats = trace_device_stats(trace_dir / "profile" / "solve" / "trace.json")
+    in_trace, trace_us = round_kernel_launches(stats["kernels"], residual)
+    want = buckets * res.outer_iters
+    gap = float(np.max(np.abs(res.F - main_solve.F)))
+    log(f"  {tag}: {res.outer_iters} supersteps in {wall:.3f} s, max|ΔF| vs phase 4 {gap:.3e}; "
+        f"hook kernel.{name}.kernel.calls {calls.value if calls else 0}, launches "
+        f"{launches[name]}, {name} kernels in the trace {in_trace} (expected {buckets} x "
+        f"{res.outer_iters} = {want})")
+    if calls is None or not calls.value == launches[name] == in_trace == want:
+        fail(f"{tag}: hook calls, launches and trace kernels differ from {want}")
+    if res.outer_iters != main_solve.outer_iters or gap > AGREE_TOL:
+        fail(f"{tag}: {res.outer_iters} supersteps vs {main_solve.outer_iters}, max|ΔF| {gap}")
+    if any(n for k, n in launches.items() if k != name):
+        fail(f"{tag}: other kernels launched: {launches}")
+    mean_ms = hist.total / hist.count * 1e3
+    log(f"    a hooked launch (host clock, synchronized at both ends): p50 "
+        f"{hist.percentile(0.5) * 1e3:.3f} ms (a log bucket edge), mean {mean_ms:.4f} ms, "
+        f"x {buckets} = {mean_ms * buckets:.3f} ms a round against phase 3's "
+        f"{phase3_ms:.4f} ms (CUDA events); trace: {name} device {trace_us / 1e3:.2f} ms, "
+        f"device busy {stats['busy_us'] / 1e3:.1f} ms of the {stats['phase_us'] / 1e6:.3f} s "
+        f"phase (busy share {stats['busy_us'] / max(stats['phase_us'], 1.0):.3f})")
+
+
+def profile_check(torch, np, dev, bundle, main_solve, b1_ms, b3_ms) -> dict:
+    """Phase 11 (d): ``powerlaw_profile_kernel`` (the network and solve of
+    ``SERVE_SPEC``, ``obs.level = "profile"``) through ``Session.run``, then
+    the same solve on a ``fused_superstep=False`` kernel engine through
+    ``observed_solve`` with the kernel hook installed, inside
+    ``profile_phase`` (``profiled_solve_check`` on each: B1 on the plan's
+    19 buckets, B3 on the legacy layout's 47).  Returns the launches."""
+    from repro_torch.api import RunSpec, Session
+    from repro_torch.engine import make_engine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import Telemetry
+    from repro_torch.obs.profiler import install_kernel_hook, profile_phase, uninstall_kernel_hook
+    from repro_torch.obs.solve import observed_solve
+
+    spec = {"run_id": "powerlaw_profile_kernel", "network": SERVE_SPEC["network"],
+            "solve": SERVE_SPEC["solve"], "obs": {"level": "profile"}}
+    run_dir = fresh_run_dir(spec["run_id"])
+    session = Session(RunSpec.from_dict(spec), results_root=str(OUT_ROOT), device=dev,
+                      bundle=bundle)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = session.run(echo=quiet)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fused = launch_counts()
+    check_telemetry(run_dir, "powerlaw_profile_kernel")
+    plan = session.engine.prepare(session.norm).payload.plan[0]
+    profiled_solve_check(np, "fused plan, B1", res, session.telemetry.metrics,
+                         run_dir / "telemetry", fused, True, len(plan), main_solve, b1_ms, wall)
+
+    legacy_dir = fresh_run_dir("powerlaw_profile_kernel_legacy") / "telemetry"
+    engine = make_engine("kernel", session.lp_config(), device=dev, fused_superstep=False)
+    tel = Telemetry("profile", run_id="powerlaw_profile_kernel_legacy")
+    reset_launch_counts()
+    install_kernel_hook(tel)
+    try:
+        with profile_phase(tel, str(legacy_dir), "solve", dev):
+            t0 = time.perf_counter()
+            legacy = observed_solve(engine, session.norm, telemetry=tel)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        uninstall_kernel_hook()
+    legacy_counts = launch_counts()
+    tel.flush(str(legacy_dir))
+    check_telemetry(legacy_dir.parent, "powerlaw_profile_kernel_legacy")
+    layout = engine.prepare(session.norm).payload.fused[0]
+    profiled_solve_check(np, "legacy layout, B3", legacy, tel.metrics, legacy_dir,
+                         legacy_counts, False, len(layout), main_solve, b3_ms, wall)
+    return {"csr_round_residual": fused["csr_round_residual"],
+            "csr_round": legacy_counts["csr_round"]}
+
+
+def crashdrill_phase(torch, np, dev, bundle, main_solve) -> int:
+    """Phase 11 (e): ``powerlaw_crashdrill_kernel``, ``SERVE_SPEC`` with
+    ``crashdrill_run.json``'s ``ft`` section and ``obs.level = "metrics"``.
+    The first ``Session.run`` dies at superstep 3 (``TransientWorkerError``);
+    ``python -m repro_torch run --resume`` completes it.  Gates: resumed
+    from a durable step; the final F (its last checkpoint) equal bit for
+    bit to a clean checkpointed run's on the card, with equal rankings and
+    scores; the serve fault at batch 2 retried, every query answered,
+    ``ft.*`` in the digest and the serve artifact.  Returns B1's launches
+    in this process."""
+    from repro_torch.api import RunSpec, Session
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.ft import TransientWorkerError
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    ft = json.loads((ROOT / "examples" / "specs" / "crashdrill_run.json").read_text())["ft"]
+    spec = {**SERVE_SPEC, "run_id": "powerlaw_crashdrill_kernel", "obs": {"level": "metrics"},
+            "ft": ft}
+    clean_spec = {**spec, "run_id": "powerlaw_crashdrill_kernel_clean",
+                  "ft": {k: v for k, v in ft.items() if not k.startswith("inject")}}
+    run_dir = fresh_run_dir(spec["run_id"])
+    fresh_run_dir(clean_spec["run_id"])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        Session(RunSpec.from_dict(spec), results_root=str(OUT_ROOT), device=dev,
+                bundle=bundle).run(echo=quiet)
+        fail("the crash drill's first run did not die at its injected fault")
+    except TransientWorkerError as e:
+        log(f"  first run: TransientWorkerError ({e}) after {time.perf_counter() - t0:.2f} s; "
+            f"durable steps {CheckpointManager(str(run_dir / 'checkpoints' / 'solve')).steps()}")
+    proc, wall = run_cli(["run", "--resume", spec["run_id"], "--device", CLI_DEVICE,
+                          "--results-root", str(OUT_ROOT)])
+    if proc.returncode != 0:
+        fail(f"run --resume exited {proc.returncode}: {proc.stderr[-2000:]}")
+    solve = json.loads((run_dir / "solve.json").read_text())
+    log(f"  python -m repro_torch run --resume {spec['run_id']} --device {CLI_DEVICE}: exit 0 "
+        f"in {wall:.1f} s; solve ft {solve['ft']}")
+    if solve["ft"].get("resumed_from") is None:
+        fail("the resumed run did not resume from a checkpoint")
+    t0 = time.perf_counter()
+    clean = Session(RunSpec.from_dict(clean_spec), results_root=str(OUT_ROOT), device=dev,
+                    bundle=bundle).run(["solve"], write=False)[0]
+    log(f"  clean checkpointed solve: {clean.outer_iters} supersteps in "
+        f"{time.perf_counter() - t0:.2f} s, ft {dict(clean.ft, ckpt_dir='...')}")
+    counts = launch_counts()
+    manager = CheckpointManager(str(run_dir / "checkpoints" / "solve"))
+    last = manager.steps()[-1]
+    leaves, meta = manager.restore_flat(last)
+    final_F = leaves[0]  # the state's leaves in key order: F, F_prev, active, col_iters
+    diff = float(np.max(np.abs(final_F - clean.F)))
+    log(f"  resumed final F (checkpoint step {last}) vs the clean run's: max|Δ| {diff} "
+        f"(gate == 0); vs phase 4's engine.run {float(np.max(np.abs(clean.F - main_solve.F))):.3e}")
+    if last != clean.outer_iters or final_F.shape != clean.F.shape or diff != 0.0:
+        fail(f"resumed solve: last step {last} vs {clean.outer_iters} supersteps, max|Δ| {diff}")
+    if solve["ranking"] != clean.ranking or solve["outer_iters"] != clean.outer_iters:
+        fail(f"resumed ranking {solve['ranking']} vs the clean run's {clean.ranking}")
+    serve = json.loads((run_dir / "serve.json").read_text())
+    sft, queries = serve["ft"], serve["report"]["queries"]
+    retried = sft.get("injected_faults") == ft["inject_serve_fault"] and sft.get("retries", 0) >= 1
+    if queries != SERVE_QUERIES or not retried:
+        fail(f"resumed serve: {queries} queries, ft {sft}")
+    digest = check_telemetry(run_dir, "powerlaw_crashdrill_kernel (resumed)")
+    if not digest.get("ft") or digest["ft"]["resumes"] != 1 or digest["ft"]["retries"] < 1:
+        fail(f"resumed run's digest ft block: {digest.get('ft')}")
+    log(f"  rankings and scores equal; serve {queries} / {SERVE_QUERIES} answered, ft "
+        f"{dict(sft, ckpt_dir='...')}; digest ft {digest['ft']}")
+    if counts["csr_round_residual"] <= 0:
+        fail("the crash drill launched csr_round_residual no time in this process")
+    return counts["csr_round_residual"]
+
+
+def entry_point_phase(torch, np, dev, bundle, main_solve, b1_ms, b3_ms) -> dict:
     """Phase 11: the port's normal entry point.  (a) the quickstart through
-    the CLI; (b) ``powerlaw_serve_kernel`` through ``Session.run`` on
-    ``bundle`` (phase 4's network): the solve held to the torch-op ``sparse``
-    engine, the replay of its 352 queries (B1 launched through serve's
-    early-exit loop), 64 queries one by one on the ``kernel`` and ``sparse``
-    serve engines, B1 at each of the loop's widths held to its plain
-    version, and one replay traced.  Returns B1's launches in the serve
-    stage and its worst error at the serve widths."""
+    the CLI, telemetry and all; (b) ``powerlaw_serve_kernel`` through
+    ``Session.run`` on ``bundle`` (phase 4's network): the solve held to the
+    torch-op ``sparse`` engine, the replay of its 352 queries (B1 launched
+    through serve's early-exit loop), 64 queries one by one on the
+    ``kernel`` and ``sparse`` serve engines, B1 at each of the loop's widths
+    held to its plain version, and one replay traced; (c) the observed solve
+    and the SLO-watched replay (``obs_phase``); (d) the profile level
+    (``profile_check``); (e) the crash drill (``crashdrill_phase``).
+    ``main_solve`` is phase 4's ``engine.run`` result, ``b1_ms``/``b3_ms``
+    phase 3's round times.  Returns B1's launches in the serve stage and
+    in (c)-(e), B3's in (d), and B1's worst error at the serve widths."""
     from repro_torch.api import RunSpec, Session
     from repro_torch.core import extract_outputs, topk_exclusive
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1056,16 +1403,25 @@ def entry_point_phase(torch, np, dev, bundle) -> dict:
         torch, "powerlaw_serve_kernel replay (2 s of diurnal trace)",
         lambda: replay_trace(session.serve_engine(), trace, (), top_k=sv.top_k,
                              time_scale=sv.time_scale))
-    b1_ms = sum(t for k, (t, _) in by_name.items() if "csr_round::round_kernel" in k) / 1e3
-    b1_n = sum(c for k, (_, c) in by_name.items() if "csr_round::round_kernel" in k)
+    b1_items = [tc for k, tc in by_name.items() if "csr_round::round_kernel" in k]
+    replay_b1_ms = sum(t for t, _ in b1_items) / 1e3
+    b1_n = sum(c for _, c in b1_items)
     htod = [(t, c) for k, (t, c) in by_name.items() if k.startswith("Memcpy HtoD")]
     dtoh = [(t, c) for k, (t, c) in by_name.items() if k.startswith("Memcpy DtoH")]
-    log(f"  traced replay: B1 x{b1_n} {b1_ms:.2f} ms; HtoD x{sum(c for _, c in htod)} "
+    log(f"  traced replay: B1 x{b1_n} {replay_b1_ms:.2f} ms; HtoD x{sum(c for _, c in htod)} "
         f"{sum(t for t, _ in htod) / 1e3:.2f} ms, DtoH x{sum(c for _, c in dtoh)} "
         f"{sum(t for t, _ in dtoh) / 1e3:.2f} ms (the early-exit loop's per-round copies); "
         f"busy {busy_us / 1e3:.1f} ms of {t_p:.3f} s")
     del session, sparse_session, kernel_serve, sparse_serve, arts, want, res
-    return {"serve_b1": b1_serve, "b1_err": b1_err}
+
+    log("== phase 11 (c): powerlaw_obs_kernel, the observed solve and the SLO-watched replay")
+    b1_obs = obs_phase(torch, np, dev, bundle, main_solve, r["qps"])
+    log("== phase 11 (d): powerlaw_profile_kernel, the profile level and the kernel hook")
+    prof = profile_check(torch, np, dev, bundle, main_solve, b1_ms, b3_ms)
+    log("== phase 11 (e): powerlaw_crashdrill_kernel, kill at superstep 3 and run --resume")
+    b1_crash = crashdrill_phase(torch, np, dev, bundle, main_solve)
+    return {"serve_b1": b1_serve + b1_obs + prof["csr_round_residual"] + b1_crash,
+            "b3": prof["csr_round"], "b1_err": b1_err}
 
 
 def main() -> int:
@@ -1499,7 +1855,7 @@ def main() -> int:
             fail(f"{name} vs fused kernel max|ΔF| {gap} > {AGREE_TOL}")
         compare_top10(top_k, top10_lists(np, topk_exclusive, extract_outputs, res.F, norm, known),
                       f"{name} vs fused kernel")
-    del res_lk, res_ls, res_k
+    del res_lk, res_ls  # phase 4's res_k stays: phase 11 holds the observed solves to it
     trace_solve(torch, "legacy kernel-engine solve", lambda: legacy_engine.run(net))
 
     # ------------------------------------- 7. DHLP-1 on blocked-CSR engines
@@ -1888,13 +2244,14 @@ def main() -> int:
 
     # ---------------------------------------------- 11. the entry point
     log("== phase 11: the normal entry point (python -m repro_torch run, Session, serve)")
-    entry = entry_point_phase(torch, np, dev, bundle)
+    entry = entry_point_phase(torch, np, dev, bundle, res_k, b1_ms, b3_ms)
+    del res_k
 
     # ------------------------------------------------ 12. the kernel list
     log("== phase 12: kernels")
     counts["csr_round_residual"] += entry["serve_b1"]
     b1_err = max(b1_err, entry["b1_err"])
-    counts["csr_round"] = legacy_counts["csr_round"]
+    counts["csr_round"] = legacy_counts["csr_round"] + entry["b3"]
     counts["csr_aggregate"] = gcn_counts["csr_aggregate"]
     counts["embedding_bag"] = wd_counts["embedding_bag"]
     counts["flash_attention"] = serving["launches"]

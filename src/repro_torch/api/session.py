@@ -19,8 +19,7 @@ engine's single-entry operator cache would force serve to re-prepare.
 Every engine of a session runs on its ``device`` (``None`` = ``cuda:0``,
 which raises without CUDA; the CPU only with ``device="cpu"``).  The
 stages whose modules are not ported yet raise ``NotImplementedError``
-naming their item of ``ROADMAP.md``'s queue A: an ``obs`` level other
-than ``"off"`` (A.4), an ``ft`` section (A.5), ``bench`` (A.6), the
+naming their item of ``ROADMAP.md``'s queue A: ``bench`` (A.6), the
 ``sharded`` backend (A.8), ``train`` and ``dryrun`` (A.9).
 """
 
@@ -82,6 +81,7 @@ class Session:
         self._engine: Any = None
         self._eval_engine: Any = None
         self._telemetry: Any = None
+        self._watchdog: Any = None
 
     # ------------------------------------------------------------- network
     @property
@@ -224,16 +224,12 @@ class Session:
         Always a live object: stage code records unconditionally and the
         off level suppresses at the sink (DESIGN.md §14.2's overhead
         policy), so there is exactly one instrumentation code path.
-        Only ``"off"`` is ported: the other levels flush through modules
-        of queue item A.4.
         """
         if self._telemetry is None:
             from repro_torch.obs import Telemetry
 
             obs = self.spec.obs
             level = obs.level if obs is not None else "off"
-            if level != "off":
-                raise not_ported(f"obs.level={level!r}", "A.4")
             export = obs.export if obs is not None else True
             self._telemetry = Telemetry(level, run_id=self.run_id, export=export)
         return self._telemetry
@@ -258,17 +254,93 @@ class Session:
             return tuple(self.bundle.eval_pair)
         return (0, self.network.num_types - 1)
 
+    # ----------------------------------------------------- fault tolerance
+    def ft_ckpt_dir(self, namespace: str) -> str:
+        """Checkpoint root for one stage (``solve`` / ``serve``).
+
+        Defaults under the run directory, so re-running the same spec with
+        the same ``run_id`` (``repro_torch run --resume``) finds the durable
+        steps without any extra plumbing; ``ft.ckpt_dir`` overrides for
+        shared/scratch filesystems.
+        """
+        ft = self.spec.ft
+        root = (
+            ft.ckpt_dir
+            if ft is not None and ft.ckpt_dir
+            else os.path.join(self.run_dir, "checkpoints")
+        )
+        return os.path.join(root, namespace)
+
+    def _checkpointed_solve(self):
+        """The durable solve path (``spec.ft`` set): superstep barriers
+        through a CheckpointManager, resume from the latest durable step."""
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.ft import FailureInjector, StragglerWatch
+        from repro_torch.ft.solve import checkpointed_solve, supports_checkpointed
+
+        ft = self.spec.ft
+        if not supports_checkpointed(self.engine):
+            raise SpecError(
+                f"ft: backend {self.backend!r} has no engine.round "
+                "contract — the checkpointed superstep loop needs it"
+            )
+        tel = self.telemetry
+        straggler = StragglerWatch(
+            alpha=ft.straggler_alpha,
+            threshold=ft.straggler_threshold,
+            telemetry=tel,
+        )
+        injector = (
+            FailureInjector(fail_at=ft.inject_solve_fault)
+            if ft.inject_solve_fault
+            else None
+        )
+        manager = CheckpointManager(
+            self.ft_ckpt_dir("solve"),
+            keep_last=ft.keep_last,
+            async_write=ft.async_write,
+        )
+        try:
+            res, stats = checkpointed_solve(
+                self.engine,
+                self.norm,
+                manager=manager,
+                interval=ft.interval,
+                telemetry=tel,
+                injector=injector,
+                straggler=straggler,
+            )
+        finally:
+            # an injected (or real) mid-solve crash must still drain the
+            # writer queue — the durable step is what --resume restarts from
+            manager.close()
+        stats["straggler_flags"] = straggler.slow_steps
+        if injector is not None:
+            stats["injected_faults"] = list(injector.fired)
+        return res, stats
+
     # -------------------------------------------------------------- stages
     def solve(self) -> SolveArtifact:
         from repro_torch.core.ranking import extract_outputs
 
         solve = self.spec.resolved_solve()
-        if self.spec.ft is not None:
-            raise not_ported("the ft section (checkpointed solve)", "A.5")
-        # level "off" only: no observed per-superstep loop (obs/solve.py)
-        self.telemetry
+        tel = self.telemetry
         t0 = time.perf_counter()
-        res = self.engine.run(self.norm)
+        ft_stats: Dict[str, Any] = {}
+        if self.spec.ft is not None:
+            res, ft_stats = self._checkpointed_solve()
+        elif tel.enabled:
+            from repro_torch.obs.solve import observed_solve, supports_observed
+
+            if supports_observed(self.engine):
+                # host-driven round loop: per-superstep residual/active
+                # series for `repro_torch obs` (same fixed point, DESIGN.md §14.3)
+                res = observed_solve(self.engine, self.norm, telemetry=tel)
+            else:
+                res = self.engine.run(self.norm)
+                tel.count("solve.supersteps", int(res.supersteps))
+        else:
+            res = self.engine.run(self.norm)
         seconds = time.perf_counter() - t0
         outputs = extract_outputs(res.F, self.norm)
         pair = self._rank_pair(solve.rank_pair)
@@ -296,7 +368,7 @@ class Session:
                 "candidates": [int(c) for c in top],
                 "scores": [float(s) for s in scores],
             },
-            ft={},
+            ft=ft_stats,
             F=res.F,
             outputs=outputs,
         )
@@ -360,8 +432,6 @@ class Session:
         """An LPServeEngine wired to the session's prepared engine."""
         from repro_torch.serve import LPServeEngine, ServeConfig
 
-        if self.spec.ft is not None:
-            raise not_ported("the ft section (guarded serving)", "A.5")
         sv = sv or self.spec.serve or ServeSpec()
         cfg = ServeConfig(
             lp=self.lp_config(),
@@ -375,7 +445,7 @@ class Session:
             pipeline_depth=sv.pipeline_depth,
             early_exit=sv.resolved_early_exit(self.spec.resolved_solve()),
         )
-        return LPServeEngine(
+        engine = LPServeEngine(
             self.network,
             cfg,
             engine=self.engine,
@@ -383,6 +453,49 @@ class Session:
             telemetry=self.telemetry,
             device=self.device,
         )
+        ft = self.spec.ft
+        if ft is not None:
+            from repro_torch.checkpoint import CheckpointManager
+            from repro_torch.ft import FailureInjector, StepGuard, StragglerWatch
+
+            engine.enable_ft(
+                guard=StepGuard(
+                    max_retries=ft.max_retries,
+                    backoff_s=ft.backoff_s,
+                    telemetry=self.telemetry,
+                ),
+                straggler=StragglerWatch(
+                    alpha=ft.straggler_alpha,
+                    threshold=ft.straggler_threshold,
+                    telemetry=self.telemetry,
+                ),
+                injector=(
+                    FailureInjector(fail_at=ft.inject_serve_fault)
+                    if ft.inject_serve_fault
+                    else None
+                ),
+                manager=CheckpointManager(
+                    self.ft_ckpt_dir("serve"),
+                    keep_last=ft.keep_last,
+                    async_write=ft.async_write,
+                ),
+                interval=ft.interval,
+            )
+        obs = self.spec.obs
+        if obs is not None and obs.slo is not None:
+            from repro_torch.obs import ServeDegradation, SLOWatchdog
+
+            if self._watchdog is not None:
+                # bench sweeps build several engines per session; only the
+                # newest one's knobs should answer to the watchdog
+                self._watchdog.detach()
+            self._watchdog = SLOWatchdog.from_spec(
+                obs.slo,
+                self.telemetry,
+                degradation=ServeDegradation(engine),
+            ).attach()
+        return engine
+
 
     def serve(self) -> ServeArtifact:
         from repro_torch.serve.replay import play_zipf, replay_trace
@@ -390,64 +503,69 @@ class Session:
         sv = self.spec.serve if self.spec.serve is not None else ServeSpec()
         engine = self.serve_engine(sv)
         t0 = time.perf_counter()
-        if sv.trace is not None:
-            import repro_torch.scenarios as sc
+        try:
+            if sv.trace is not None:
+                import repro_torch.scenarios as sc
 
-            if self.bundle is None:
-                raise SpecError(
-                    "serve.trace replay needs a scenario/drugnet network "
-                    "(file networks carry no trace schema)"
-                )
-            trace = sc.build_trace(
-                self.bundle,
-                sv.trace,
-                rate_qps=sv.rate_qps,
-                horizon_s=sv.horizon_s,
-                seed=self.spec.network.seed,
-            )
-            if len(trace) == 0:
-                raise SpecError(
-                    f"serve.trace: the {sv.trace} trace came out empty "
-                    f"(rate_qps={sv.rate_qps}, horizon_s={sv.horizon_s}); "
-                    "raise one of them"
-                )
-            report = replay_trace(
-                engine,
-                trace,
-                self.bundle.deltas if sv.apply_deltas else (),
-                top_k=sv.top_k,
-                time_scale=sv.time_scale,
-                priority=sv.priority,
-                telemetry=self.telemetry,
-            )
-            mode = "trace"
-        else:
-            pair = self._rank_pair(None)
-            src = sv.source_type if sv.source_type is not None else pair[0]
-            dst = sv.target_type if sv.target_type is not None else pair[1]
-            for knob, t in (("source_type", src), ("target_type", dst)):
-                if t >= self.network.num_types:
+                if self.bundle is None:
                     raise SpecError(
-                        f"serve.{knob}={t} out of range: the network has "
-                        f"{self.network.num_types} node types"
+                        "serve.trace replay needs a scenario/drugnet network "
+                        "(file networks carry no trace schema)"
                     )
-            if src == dst:
-                raise SpecError(
-                    f"serve.source_type == serve.target_type == {src}; "
-                    "the zipf workload ranks a cross-type interaction"
+                trace = sc.build_trace(
+                    self.bundle,
+                    sv.trace,
+                    rate_qps=sv.rate_qps,
+                    horizon_s=sv.horizon_s,
+                    seed=self.spec.network.seed,
                 )
-            report = play_zipf(
-                engine,
-                source_type=src,
-                target_type=dst,
-                requests=sv.requests,
-                zipf=sv.zipf,
-                deltas=sv.deltas,
-                top_k=sv.top_k,
-                seed=self.spec.network.seed,
-                telemetry=self.telemetry,
-            )
-            mode = "zipf"
+                if len(trace) == 0:
+                    raise SpecError(
+                        f"serve.trace: the {sv.trace} trace came out empty "
+                        f"(rate_qps={sv.rate_qps}, horizon_s={sv.horizon_s}); "
+                        "raise one of them"
+                    )
+                report = replay_trace(
+                    engine,
+                    trace,
+                    self.bundle.deltas if sv.apply_deltas else (),
+                    top_k=sv.top_k,
+                    time_scale=sv.time_scale,
+                    priority=sv.priority,
+                    telemetry=self.telemetry,
+                )
+                mode = "trace"
+            else:
+                pair = self._rank_pair(None)
+                src = sv.source_type if sv.source_type is not None else pair[0]
+                dst = sv.target_type if sv.target_type is not None else pair[1]
+                for knob, t in (("source_type", src), ("target_type", dst)):
+                    if t >= self.network.num_types:
+                        raise SpecError(
+                            f"serve.{knob}={t} out of range: the network has "
+                            f"{self.network.num_types} node types"
+                        )
+                if src == dst:
+                    raise SpecError(
+                        f"serve.source_type == serve.target_type == {src}; "
+                        "the zipf workload ranks a cross-type interaction"
+                    )
+                report = play_zipf(
+                    engine,
+                    source_type=src,
+                    target_type=dst,
+                    requests=sv.requests,
+                    zipf=sv.zipf,
+                    deltas=sv.deltas,
+                    top_k=sv.top_k,
+                    seed=self.spec.network.seed,
+                    telemetry=self.telemetry,
+                )
+                mode = "zipf"
+        finally:
+            # final cache snapshot + writer-thread shutdown (no-op with
+            # ft disabled); stats stay readable for the artifact below
+            engine.close_ft()
         seconds = time.perf_counter() - t0
         sample = report.pop("sample", {})
         report.pop("latencies", None)  # raw samples stay in memory only
@@ -458,8 +576,8 @@ class Session:
             engine=self.backend,
             report=report,
             sample=sample,
-            slo={},
-            ft={},
+            slo=self._watchdog.report() if self._watchdog is not None else {},
+            ft=engine.ft_stats(),
         )
 
     # ------------------------------------------- bench / train / dryrun
@@ -500,28 +618,54 @@ class Session:
         if unknown:
             raise SpecError(f"unknown run section(s) {unknown}")
         # refuse what is not ported before anything runs or is written
-        if self.spec.ft is not None:
-            raise not_ported("the ft section", "A.5")
         serve_engine = self.spec.serve.engine if self.spec.serve else None
         if "sharded" in (self.spec.resolved_solve().backend, serve_engine):
             raise not_ported("the sharded backend", "A.8")
         for name in names:
             if name in _NOT_PORTED_STAGES:
                 raise not_ported(f"the {name} section", _NOT_PORTED_STAGES[name])
-        tel = self.telemetry  # raises for an obs level other than "off"
         if write:
             os.makedirs(self.run_dir, exist_ok=True)
             _write_json(os.path.join(self.run_dir, "spec.json"), self.spec.to_dict())
 
-        # at level "off" nothing streams, profiles or flushes: those paths
-        # are obs/{profiler,summary,export}.py, queue item A.4
+        tel = self.telemetry
+        tel_dir = os.path.join(self.run_dir, "telemetry")
+        obs = self.spec.obs
+        if (
+            write
+            and tel.enabled
+            and obs is not None
+            and obs.flush_interval_s is not None
+        ):
+            # live mode: telemetry/<run_id> becomes readable mid-run and
+            # the SLO watchdog (if any) gets its per-window flush ticks
+            tel.attach_stream(tel_dir, interval_s=obs.flush_interval_s)
+        if tel.profile_enabled:
+            from repro_torch.obs.profiler import install_kernel_hook
+
+            install_kernel_hook(tel)
         artifacts: List[Artifact] = []
-        with tel.span("run", self.run_id, sections=list(names)):
-            for name in names:
-                with tel.span("phase", name):
-                    art = stages[name]()
-                artifacts.append(art)
-                if write:
-                    for path in art.write(self.run_dir):
-                        echo(f"[{name}] wrote {path}")
+        try:
+            with tel.span("run", self.run_id, sections=list(names)):
+                for name in names:
+                    with tel.span("phase", name):
+                        if name in ("solve", "serve") and tel.profile_enabled:
+                            from repro_torch.obs.profiler import profile_phase
+
+                            with profile_phase(tel, tel_dir, name, self.device):
+                                art = stages[name]()
+                        else:
+                            art = stages[name]()
+                    artifacts.append(art)
+                    if write:
+                        for path in art.write(self.run_dir):
+                            echo(f"[{name}] wrote {path}")
+        finally:
+            if tel.profile_enabled:
+                from repro_torch.obs.profiler import uninstall_kernel_hook
+
+                uninstall_kernel_hook()
+        if write and tel.enabled:
+            for path in tel.flush(tel_dir):
+                echo(f"[obs] wrote {path}")
         return artifacts

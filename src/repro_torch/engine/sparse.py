@@ -15,7 +15,7 @@ behind ``fused_superstep=False`` as the A/B baseline; on ``kernel`` its
 rounds are the ``csr_round`` CUDA kernel.  DHLP-1 runs on ``sparse``
 (both loops); ``kernel`` is DHLP-2 only, as in the reference.
 
-Not ported yet (ROADMAP queue A.4): the GPU-keyed autotune cache and
+Not ported yet (ROADMAP queue A.7): the GPU-keyed autotune cache and
 sweep — the layout always resolves to
 :data:`~repro_torch.engine.autotune.DEFAULT_PARAMS`.
 ``storage_dtype="bf16"`` stores the fused plans' operator weights and

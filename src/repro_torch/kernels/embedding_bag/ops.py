@@ -30,6 +30,7 @@ from repro_torch.kernels.common import (
     widest_vector,
 )
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.obs.profiler import kernel_clock, kernel_time
 
 SOURCE = "embedding_bag.cu"
 LAUNCHES = LaunchCounter("embedding_bag")
@@ -133,12 +134,13 @@ def embedding_bag_op(
     ``(ld, D, 1)``: bag ``i`` lands at ``out[i // G, i % G]`` (the Wide &
     Deep model's padded MLP input).  Returns ``out``.
     """
+    t0 = kernel_clock(table.device)
     if on_cpu(table, idx, w):
         res = embedding_bag_ref(table, idx, w)
         if out is not None:
             out.copy_(res.view(out.shape))
             res = out
-        return res
+        return kernel_time("embedding_bag.ref", t0, res)
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"embedding_bag: unsupported device {dev}")
@@ -179,4 +181,4 @@ def embedding_bag_op(
     )
     check_launch("embedding_bag", err)
     LAUNCHES.add()
-    return out
+    return kernel_time("embedding_bag.kernel", t0, out)

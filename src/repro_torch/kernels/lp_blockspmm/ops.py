@@ -26,6 +26,7 @@ from repro_torch.kernels.common import (
     stream_handle,
 )
 from repro_torch.kernels.lp_blockspmm.ref import lp_round_ref
+from repro_torch.obs.profiler import kernel_clock, kernel_time
 
 SOURCE = "lp_round.cu"
 LAUNCHES = LaunchCounter("lp_round")
@@ -57,8 +58,9 @@ def lp_round_op(
     A: torch.Tensor, F: torch.Tensor, base: torch.Tensor, *, c: float
 ) -> torch.Tensor:
     """``c·base + A @ F`` with an f32 accumulator, in ``F.dtype``."""
+    t0 = kernel_clock(F.device)
     if on_cpu(A, F, base):
-        return lp_round_ref(A, F, base, c)
+        return kernel_time("lp_round.ref", t0, lp_round_ref(A, F, base, c))
     dev = F.device
     if dev.type != "cuda":
         raise ValueError(f"lp_round: unsupported device {dev}")
@@ -95,4 +97,4 @@ def lp_round_op(
     )
     check_launch("lp_round", err)
     LAUNCHES.add()
-    return out
+    return kernel_time("lp_round.kernel", t0, out)

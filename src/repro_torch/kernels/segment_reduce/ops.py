@@ -30,6 +30,7 @@ from repro_torch.kernels.segment_reduce.ref import (
     csr_round_ref,
     csr_round_residual_ref,
 )
+from repro_torch.obs.profiler import kernel_clock, kernel_time
 
 SOURCE = "csr_round_residual.cu"
 LAUNCHES = LaunchCounter("csr_round_residual")
@@ -155,12 +156,13 @@ def csr_aggregate_op(
     pad, as in :func:`csr_round_op`; the plain version sums every slot and
     gives the same function.
     """
+    t0 = kernel_clock(F.device)
     if on_cpu(nbr, wgt, F):
         res = csr_aggregate_ref(nbr, wgt, F)
         if out is not None:
             out.copy_(res)
             res = out
-        return res
+        return kernel_time("csr_aggregate.ref", t0, res)
     m, d, s = _check_bucket("csr_aggregate", nbr, wgt, F)
     dev = F.device
     if out is None:
@@ -192,7 +194,7 @@ def csr_aggregate_op(
     )
     check_launch("csr_aggregate", err)
     AGGREGATE_LAUNCHES.add()
-    return out
+    return kernel_time("csr_aggregate.kernel", t0, out)
 
 
 def csr_round_op(
@@ -214,12 +216,13 @@ def csr_round_op(
     pads name still reaches the rows that have pads); the plain version
     sums every slot and gives the same function.
     """
+    t0 = kernel_clock(F.device)
     if on_cpu(nbr, wgt, F, base):
         res = csr_round_ref(nbr, wgt, F, base, c)
         if out is not None:
             out.copy_(res)
             res = out
-        return res
+        return kernel_time("csr_round.ref", t0, res)
     m, d, s = _check_bucket("csr_round", nbr, wgt, F, base)
     dev = F.device
     if out is None:
@@ -248,7 +251,7 @@ def csr_round_op(
     )
     check_launch("csr_round", err)
     ROUND_LAUNCHES.add()
-    return out
+    return kernel_time("csr_round.kernel", t0, out)
 
 
 def csr_round_residual_op(
@@ -273,12 +276,13 @@ def csr_round_residual_op(
     next state, so no per-round concatenation is needed).  ``live`` as for
     :func:`csr_round_op`.
     """
+    t0 = kernel_clock(F.device)
     if on_cpu(nbr, wgt, F, base, prev):
         res, delta = csr_round_residual_ref(nbr, wgt, F, base, prev, c)
         if out is not None:
             out.copy_(res)
             res = out
-        return res, delta
+        return kernel_time("csr_round_residual.ref", t0, (res, delta))
     m, d, s = _check_bucket("csr_round_residual", nbr, wgt, F, base)
     dev = F.device
     check_cuda_operand("prev", prev, device=dev, dtypes=(torch.float32,), shape=(m, s))
@@ -312,4 +316,4 @@ def csr_round_residual_op(
     )
     check_launch("csr_round_residual", err)
     LAUNCHES.add()
-    return out, delta
+    return kernel_time("csr_round_residual.kernel", t0, (out, delta))

@@ -7,12 +7,13 @@ online serving, benchmark passes — executes through a declarative
 thin argparse layer over that API:
 
 * ``run``       — the driver: a spec file, or flags that build one;
+* ``obs``       — render/validate a run's telemetry (DESIGN.md §14);
 * ``solve``, ``serve``, ``scenario`` — legacy-surface subcommands: the
   flag surfaces of the retired ``repro_torch.launch.*`` module entry
   points, kept as positional subcommands;
-* ``obs`` and ``bench`` — not ported yet (``ROADMAP.md`` queue items A.4
-  and A.6): they exit 2 and name their item, as does ``run`` for a spec
-  section whose modules are not ported.
+* ``bench`` — not ported yet (``ROADMAP.md`` queue item A.6): it exits 2
+  and names its item, as does ``run`` for a spec section whose modules
+  are not ported.
 
 Every subcommand that solves takes ``--device`` (default ``cuda``; there
 is no fallback to the CPU, which runs only with ``--device cpu``).
@@ -31,7 +32,7 @@ import json
 import os
 import sys
 import warnings
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 ARRIVAL_CHOICES = ("poisson", "bursty", "diurnal")
 # the scenario sweep's agreement gate: repro.bench.matrix.AGREEMENT_TOL,
@@ -473,11 +474,25 @@ def run_main(argv: Optional[List[str]] = None) -> int:
                     "(edit the spec instead)"
                 )
         if args.resume is not None:
-            # resuming needs the checkpoint store and the ft runtime
-            from repro_torch.api.session import not_ported
-
-            raise not_ported("--resume", "A.5")
-        if args.spec is not None:
+            if args.spec is not None:
+                ap.error("--resume reloads the stored spec; drop the spec file")
+            if args.run_id:
+                ap.error("--resume fixes the run id; drop --run-id")
+            stored = os.path.join(args.results_root, args.resume, "spec.json")
+            if not os.path.isfile(stored):
+                raise SpecError(
+                    f"--resume {args.resume}: no stored spec at {stored}"
+                )
+            spec = RunSpec.from_file(stored)
+            if spec.ft is None:
+                raise SpecError(
+                    f"--resume {args.resume}: the stored spec has no ft "
+                    "section — nothing was checkpointed"
+                )
+            # the run id pins both the artifact dir and the default
+            # checkpoint root the resumed solve restores from
+            spec = RunSpec.from_dict({**spec.to_dict(), "run_id": args.resume})
+        elif args.spec is not None:
             spec = RunSpec.from_file(args.spec)
             if args.run_id:
                 spec = RunSpec.from_dict({**spec.to_dict(), "run_id": args.run_id})
@@ -993,7 +1008,7 @@ def scenario_main(argv: Optional[List[str]] = None) -> int:
 
 
 # --------------------------------------------------------------------------
-# repro_torch bench / obs: not ported yet
+# repro_torch bench: not ported yet
 # --------------------------------------------------------------------------
 def bench_main(argv: Optional[List[str]] = None) -> int:
     from repro_torch.api.session import not_ported
@@ -1001,10 +1016,159 @@ def bench_main(argv: Optional[List[str]] = None) -> int:
     raise not_ported("the bench subcommand", "A.6")
 
 
-def obs_main(argv: Optional[List[str]] = None) -> int:
-    from repro_torch.api.session import not_ported
+# --------------------------------------------------------------------------
+# repro_torch obs
+# --------------------------------------------------------------------------
+def _has_telemetry(path: str) -> bool:
+    """A telemetry dir is recognizable mid-stream: the consolidated
+    events.jsonl only lands at the final flush, so live segments or the
+    metrics snapshot also count."""
+    import glob
+    import os
 
-    raise not_ported("the obs subcommand", "A.4")
+    if not os.path.isdir(path):
+        return False
+    return (
+        os.path.isfile(os.path.join(path, "events.jsonl"))
+        or os.path.isfile(os.path.join(path, "metrics.jsonl"))
+        or bool(glob.glob(os.path.join(path, "events-*.jsonl")))
+    )
+
+
+def _latest_run_id(results_root: str) -> Optional[str]:
+    """Most recently modified results/<run_id>/ with a telemetry dir."""
+    import os
+
+    if not os.path.isdir(results_root):
+        return None
+    best, best_mtime = None, -1.0
+    for name in os.listdir(results_root):
+        tel = os.path.join(results_root, name, "telemetry")
+        if _has_telemetry(tel):
+            mtime = os.path.getmtime(tel)
+            if mtime > best_mtime:
+                best, best_mtime = name, mtime
+    return best
+
+
+def obs_main(argv: Optional[List[str]] = None) -> int:
+    """Render (and optionally validate) a run's telemetry artifacts."""
+    import os
+    import time as _time
+
+    ap = argparse.ArgumentParser(
+        prog="repro_torch obs",
+        description="summarize results/<run_id>/telemetry/ (DESIGN.md §14.5)",
+    )
+    ap.add_argument(
+        "run_id",
+        nargs="?",
+        default=None,
+        help="run id under --results-root, or a path to a run/telemetry "
+        "dir; omitted = the most recent run with telemetry",
+    )
+    ap.add_argument("--results-root", default="results")
+    ap.add_argument(
+        "--validate",
+        action="store_true",
+        help="schema-check every telemetry line before rendering",
+    )
+    ap.add_argument(
+        "--json",
+        action="store_true",
+        help="print the summary digest as JSON instead of text",
+    )
+    ap.add_argument(
+        "--follow",
+        action="store_true",
+        help="tail a live run: re-render the digest as flush ticks land",
+    )
+    ap.add_argument(
+        "--interval",
+        type=float,
+        default=1.0,
+        help="--follow poll interval in seconds (default 1.0)",
+    )
+    ap.add_argument(
+        "--max-ticks",
+        type=int,
+        default=0,
+        help="--follow: stop after N re-renders (0 = until interrupted)",
+    )
+    args = ap.parse_args(argv)
+
+    if args.run_id is None:
+        args.run_id = _latest_run_id(args.results_root)
+        if args.run_id is None:
+            print(
+                f"repro_torch obs: no run with telemetry under "
+                f"{args.results_root!r}; pass a run id or path",
+                file=sys.stderr,
+            )
+            return 2
+        print(f"[obs] defaulting to most recent run: {args.run_id}")
+
+    candidates = [
+        os.path.join(args.results_root, args.run_id, "telemetry"),
+        os.path.join(args.run_id, "telemetry"),
+        args.run_id,
+    ]
+    tel_dir = next((c for c in candidates if _has_telemetry(c)), None)
+    if tel_dir is None:
+        print(
+            f"repro_torch obs: no telemetry found for {args.run_id!r} "
+            f"(looked in {candidates}); was the run executed with "
+            "obs.level != 'off'?",
+            file=sys.stderr,
+        )
+        return 2
+
+    from repro_torch.obs.schema import TelemetryError, validate_dir
+    from repro_torch.obs.summary import load_dir, render, summarize
+
+    if args.validate:
+        try:
+            counts = validate_dir(tel_dir)
+        except TelemetryError as e:
+            print(f"repro_torch obs: INVALID telemetry: {e}", file=sys.stderr)
+            return 1
+        kinds = " ".join(f"{k}:{v}" for k, v in sorted(counts.items()))
+        print(f"[obs] schema ok: {kinds}")
+
+    def emit() -> None:
+        summary = summarize(*load_dir(tel_dir))
+        if args.json:
+            print(json.dumps(summary, indent=2, sort_keys=True))
+        else:
+            print(render(summary))
+
+    if not args.follow:
+        emit()
+        return 0
+
+    # live tail: re-render whenever the streamed snapshot advances
+    ticks = 0
+    last_sig: Any = None
+    try:
+        while True:
+            names = sorted(
+                n for n in os.listdir(tel_dir) if n.endswith((".jsonl", ".prom"))
+            )
+            sig = tuple(
+                (n, os.path.getmtime(os.path.join(tel_dir, n))) for n in names
+            )
+            if sig != last_sig:
+                last_sig = sig
+                if ticks:
+                    print(f"--- tick {ticks} ---")
+                emit()
+                ticks += 1
+                if args.max_ticks and ticks >= args.max_ticks:
+                    break
+            _time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    return 0
 
 
 # --------------------------------------------------------------------------
@@ -1026,9 +1190,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         names = " | ".join(_SUBCOMMANDS)
         print(f"usage: python -m repro_torch {{{names}}} ...\n")
         print(
-            "`run` executes a declarative RunSpec (DESIGN.md §13); `solve`, "
-            "`serve` and\n`scenario` are deprecation shims for the retired "
-            "standalone CLIs; `obs` and\n`bench` are not ported yet."
+            "`run` executes a declarative RunSpec (DESIGN.md §13); `obs` "
+            "renders a\nrun's telemetry (§14); `solve`, `serve` and `scenario` "
+            "are deprecation\nshims for the retired standalone CLIs; `bench` "
+            "is not ported yet."
         )
         return 0
     cmd, rest = argv[0], argv[1:]

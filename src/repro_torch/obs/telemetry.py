@@ -21,8 +21,8 @@ constraints, in priority order:
 
 Levels: ``off`` < ``metrics`` (counters/gauges/histograms + structural
 spans) < ``trace`` (adds per-superstep / per-query spans) < ``profile``
-(adds the profiler capture + kernel timing hooks of ``repro.obs.profiler``,
-not ported yet: ROADMAP.md queue A.4).
+(adds ``torch.profiler`` capture + kernel timing hooks, see
+:mod:`repro_torch.obs.profiler`).
 
 **Streaming** (DESIGN.md §14.7): :meth:`Telemetry.attach_stream` turns
 the end-of-run recorder into a live sink.  Producers call
@@ -322,13 +322,9 @@ class Telemetry:
         }
 
     def summary(self) -> Dict[str, Any]:
-        # the digest (obs/summary.py) and the OpenMetrics export behind
-        # flush() are not ported yet; the Session refuses every level but
-        # "off", which never flushes
-        raise NotImplementedError(
-            "Telemetry.summary/flush need repro_torch.obs.summary and "
-            "obs.export, not ported yet (ROADMAP.md queue A.4)"
-        )
+        from repro_torch.obs.summary import summarize
+
+        return summarize(self.meta(), self.events(), self.metrics.to_lines())
 
     # ------------------------------------------------------------- streaming
     def attach_stream(

@@ -162,6 +162,14 @@ class ColumnCache:
     def cached_nodes(self, version: int) -> List[int]:
         return [n for (v, n) in self._lru if v == version]
 
+    def snapshot(self, version: int) -> List[Tuple[int, np.ndarray]]:
+        """Stats-neutral read of one version's columns (FT checkpoint).
+
+        Unlike ``get`` this neither bumps hit counters nor touches LRU
+        order — a periodic checkpoint must not distort the hit-rate SLO
+        or promote cold entries."""
+        return [(n, col) for (v, n), col in self._lru.items() if v == version]
+
     # --------------------------------------------------------- invalidation
     def invalidate_for_delta(
         self,
@@ -200,6 +208,23 @@ class ColumnCache:
         if demoted:
             self._count("invalidations", demoted)
         return demoted
+
+    def invalidate_newer(self, version: int) -> int:
+        """Drop every column published after ``version`` (FT restore).
+
+        After a restore to a checkpoint watermark, columns computed past
+        the watermark may carry state from the failed execution — they
+        are dropped outright, not demoted: a tainted column must not even
+        warm-start the replay.  Stale hints predating the watermark keep
+        their (versionless) warm-start role.  Returns the drop count.
+        """
+        doomed = [(v, n) for (v, n) in self._lru if v > version]
+        for key in doomed:
+            del self._lru[key]
+        if doomed:
+            self.stats.invalidations += len(doomed)
+            self._count("invalidations", len(doomed))
+        return len(doomed)
 
     def clear(self) -> None:
         self._lru.clear()
@@ -298,6 +323,13 @@ class ShardedColumnCache:
                 out.extend(shard.cached_nodes(version))
         return out
 
+    def snapshot(self, version: int) -> List[Tuple[int, np.ndarray]]:
+        out: List[Tuple[int, np.ndarray]] = []
+        for shard, lock in zip(self._shards, self._locks):
+            with lock:
+                out.extend(shard.snapshot(version))
+        return out
+
     def invalidate_for_delta(
         self,
         old_version: int,
@@ -319,6 +351,13 @@ class ShardedColumnCache:
                     carry_untouched=carry_untouched,
                 )
         return demoted
+
+    def invalidate_newer(self, version: int) -> int:
+        dropped = 0
+        for shard, lock in zip(self._shards, self._locks):
+            with lock:
+                dropped += shard.invalidate_newer(version)
+        return dropped
 
     def clear(self) -> None:
         for shard, lock in zip(self._shards, self._locks):

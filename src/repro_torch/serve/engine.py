@@ -41,8 +41,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 from concurrent.futures import Future
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -167,6 +168,29 @@ class ServeConfig:
 
 
 @dataclasses.dataclass
+class _FTKit:
+    """Serve-side durability state attached by :meth:`LPServeEngine.enable_ft`.
+
+    ``attempts`` counts every entry into the guarded execute stage (so the
+    injector's step key is unique per *attempt* and a retried batch gets a
+    fresh key — a fault fires once, not on every replay); ``completed``
+    counts successful batches and drives the checkpoint cadence.
+    """
+
+    guard: Optional[Any] = None
+    straggler: Optional[Any] = None
+    injector: Optional[Any] = None
+    manager: Optional[Any] = None
+    interval: int = 5
+    attempts: int = 0
+    completed: int = 0
+    checkpoints: int = 0
+    watermark: int = -1      # network version of the last durable snapshot
+    ckpt_dir: Optional[str] = None
+    closed: bool = False
+
+
+@dataclasses.dataclass
 class PreparedBatch:
     """Everything stage 2 needs, snapshotted by stage 1.
 
@@ -249,10 +273,16 @@ class LPServeEngine:
             telemetry=telemetry,
         )
         self._tel = telemetry
+        # early-exit residual-threshold multiplier: the SLO watchdog's
+        # second degradation rung widens it (columns leave the active set
+        # sooner -> cheaper solves, coarser tails) and restores it to 1.0
+        # on recovery
+        self._sigma_scale = 1.0
         # one solve/update at a time: the engines' prepared-operator caches
         # are single-entry and not concurrency-safe; the sharded column
         # cache carries its own locks, so assembly stays outside this lock
         self._lock = threading.Lock()
+        self._ft: Optional[_FTKit] = None
 
     # ------------------------------------------------------------ accessors
     @property
@@ -262,6 +292,22 @@ class LPServeEngine:
     @property
     def version(self) -> int:
         return self._state.version
+
+    @property
+    def sigma_scale(self) -> float:
+        return self._sigma_scale
+
+    def set_sigma_scale(self, scale: float) -> None:
+        """Runtime early-exit degradation knob (>= 1.0 widens σ).
+
+        Only the early-exit solve path honors it; on a full-superstep
+        engine the knob is recorded but inert.
+        """
+        if scale < 1.0:
+            raise ValueError(f"sigma_scale must be >= 1.0, got {scale}")
+        self._sigma_scale = float(scale)
+        if self._tel is not None:
+            self._tel.gauge("serve.early_exit.sigma_scale", self._sigma_scale)
 
     # -------------------------------------------------------------- queries
     def _validate(self, spec: QuerySpec, state: NetworkState) -> None:
@@ -347,6 +393,35 @@ class LPServeEngine:
 
     # ------------------------------------------------------- stage 2: execute
     def _execute_batch(self, prepared: PreparedBatch) -> List[QueryResult]:
+        """Stage-2 entry point; adds the FT envelope when enabled.
+
+        The fault injector keys on the *attempt* index (unique per entry,
+        including guarded replays of the same :class:`PreparedBatch`), the
+        straggler watch times the whole execute, and every ``interval``
+        completed batches the current version's cache columns go through
+        the checkpoint manager.  With FT disabled this is a direct call.
+        """
+        ft = self._ft
+        if ft is None:
+            return self._execute_batch_impl(prepared)
+        idx = ft.attempts
+        ft.attempts += 1
+        if ft.injector is not None:
+            ft.injector.maybe_fail(idx)
+        t0 = time.perf_counter()
+        out = self._execute_batch_impl(prepared)
+        if ft.straggler is not None:
+            ft.straggler.observe(time.perf_counter() - t0)
+        ft.completed += 1
+        if (
+            ft.manager is not None
+            and not ft.closed
+            and ft.completed % ft.interval == 0
+        ):
+            self._ft_checkpoint()
+        return out
+
+    def _execute_batch_impl(self, prepared: PreparedBatch) -> List[QueryResult]:
         """Batched solve + cache write-back + ranking (engine lock held)."""
         with self._lock:
             state = prepared.state
@@ -386,6 +461,136 @@ class LPServeEngine:
     def _solve_batch(self, specs: Sequence[QuerySpec]) -> List[QueryResult]:
         """One-stage tick: the synchronous drivers' (and tests') path."""
         return self._execute_batch(self._assemble_batch(specs))
+
+    # ------------------------------------------------------- fault tolerance
+    def enable_ft(
+        self,
+        *,
+        guard=None,
+        straggler=None,
+        injector=None,
+        manager=None,
+        interval: int = 5,
+    ) -> None:
+        """Attach the durability kit (DESIGN.md §16).
+
+        ``guard`` (a :class:`repro_torch.ft.StepGuard`) is installed on the
+        batcher so solver-thread batch execution retries transient
+        failures; its ``restore_fn`` is pointed at :meth:`_ft_restore`, so
+        retry exhaustion rolls the column cache back to the last durable
+        snapshot and the in-flight batch replays against restored state.
+        ``manager`` (a :class:`repro_torch.checkpoint.CheckpointManager`) takes
+        an immediate snapshot — the restore watermark exists before the
+        first fault can.
+        """
+        if interval < 1:
+            raise ValueError(f"interval must be >= 1, got {interval}")
+        self._ft = _FTKit(
+            guard=guard,
+            straggler=straggler,
+            injector=injector,
+            manager=manager,
+            interval=interval,
+            ckpt_dir=getattr(manager, "root", None),
+        )
+        if guard is not None:
+            guard.restore_fn = self._ft_restore
+            self.batcher.guard = guard
+        if manager is not None:
+            self._ft_checkpoint()
+
+    def _ft_checkpoint(self) -> None:
+        """Snapshot the current version's cached columns durably.
+
+        Stats-neutral read (``cache.snapshot``), saved as two leaves —
+        node ids and the stacked float64 column panel — plus the network
+        version in metadata: the restore's invalidation watermark.
+        """
+        ft = self._ft
+        version = self._state.version
+        snap = self.columns.snapshot(version)
+        nodes = np.array([n for n, _ in snap], dtype=np.int64)
+        cols = (
+            np.stack([c for _, c in snap], axis=1).astype(np.float64)
+            if snap
+            else np.zeros((self._state.num_nodes, 0), dtype=np.float64)
+        )
+        ft.manager.save(
+            ft.checkpoints,
+            [nodes, cols],
+            metadata={"version": version, "kind": "serve-cache",
+                      "completed": ft.completed},
+        )
+        ft.checkpoints += 1
+        ft.watermark = version
+        if self._tel is not None:
+            self._tel.count("ft.checkpoints")
+
+    def _ft_restore(self) -> None:
+        """Roll the column cache back to the last durable snapshot.
+
+        Columns published after the snapshot's version watermark are
+        dropped outright (they may carry state from the failed execution);
+        snapshot columns re-enter as servable entries when the version
+        still matches, else as warm-start hints.  The replayed batch then
+        re-solves its misses against clean state.
+        """
+        ft = self._ft
+        with self._lock:
+            if ft is None or ft.manager is None:
+                # no durable snapshot to return to: drop every cached
+                # column — replays re-solve from seeds, which is safe
+                self.columns.invalidate_newer(-1)
+                return
+            step, leaves, meta = ft.manager.restore_latest_flat()
+            watermark = int(meta.get("version", -1)) if step is not None else -1
+            self.columns.invalidate_newer(watermark)
+            if step is None or not leaves:
+                return
+            nodes, cols = leaves[0], leaves[1]
+            n = self._state.num_nodes
+            fresh = watermark == self._state.version
+            for i, node in enumerate(np.asarray(nodes, dtype=np.int64)):
+                col = np.asarray(cols[:, i], dtype=np.float64)
+                if fresh and col.shape[0] == n:
+                    self.columns.put(watermark, int(node), col)
+                elif col.shape[0] == n:
+                    self.columns.put_stale(int(node), col)
+
+    def ft_stats(self) -> Dict[str, Any]:
+        """Durability roll-up for the serve artifact (empty when FT off)."""
+        ft = self._ft
+        if ft is None:
+            return {}
+        out: Dict[str, Any] = {
+            "batches": ft.completed,
+            "checkpoints": ft.checkpoints,
+            "watermark": ft.watermark,
+        }
+        if ft.guard is not None:
+            out["retries"] = ft.guard.retries
+            out["restores"] = ft.guard.restores
+        if ft.straggler is not None:
+            out["straggler_flags"] = ft.straggler.slow_steps
+        if ft.injector is not None:
+            out["injected_faults"] = list(ft.injector.fired)
+        if ft.ckpt_dir is not None:
+            out["ckpt_dir"] = ft.ckpt_dir
+        return out
+
+    def close_ft(self) -> None:
+        """Final snapshot + writer-thread shutdown (idempotent).
+
+        Keeps ``ft_stats()`` readable after close — the Session reads the
+        roll-up into the serve artifact after draining the trace.
+        """
+        ft = self._ft
+        if ft is None or ft.closed:
+            return
+        if ft.manager is not None:
+            self._ft_checkpoint()
+            ft.manager.close()
+        ft.closed = True
 
     def _run_solver(
         self, state: NetworkState, Y: np.ndarray, F0: np.ndarray
@@ -442,7 +647,7 @@ class LPServeEngine:
             delta = np.asarray(delta, dtype=np.float64)[:a]
             F[:, active] = Fn
             col_iters[active] += 1
-            active = active[delta >= cfg.sigma]
+            active = active[delta >= cfg.sigma * self._sigma_scale]
             it += 1
         return SolveResult(
             F=F,

@@ -140,6 +140,7 @@ class MicroBatcher:
         assemble: Optional[Callable[[Sequence[QuerySpec]], Any]] = None,
         execute: Optional[Callable[[Any], List[QueryResult]]] = None,
         telemetry=None,
+        guard=None,
     ):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -156,6 +157,12 @@ class MicroBatcher:
         self._assemble = assemble
         self._execute = execute
         self._tel = telemetry
+        # optional repro_torch.ft.StepGuard: solver-side batch execution runs
+        # inside it, so a transient engine fault retries (and, with a
+        # restore_fn wired, restores + replays the in-flight batch)
+        # instead of failing every co-batched future.  Public so the
+        # serve engine's FT wiring can attach one after construction.
+        self.guard = guard
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self.queue_depth = queue_depth
@@ -165,8 +172,12 @@ class MicroBatcher:
         }
         self._pending_count = 0
         self._cond = threading.Condition()
+        # per-instance so the SLO degradation hook can shed a class's
+        # share at runtime (set_admit_fraction) without touching the
+        # module-level policy defaults
+        self._admit_fraction = dict(ADMIT_FRACTION)
         self._admit_limit = {
-            c: max(1, int(queue_depth * ADMIT_FRACTION[c]))
+            c: max(1, int(queue_depth * self._admit_fraction[c]))
             for c in PRIORITY_CLASSES
         }
         self.stats = SchedulerStats()
@@ -233,6 +244,39 @@ class MicroBatcher:
             self._tel.count("serve.rejected")
             self._tel.count(f"serve.rejected.{cls}")
         raise queue.Full
+
+    # ------------------------------------------------- admission degradation
+    def admit_fraction(self, cls: str) -> float:
+        """The current admission share for ``cls`` (1.0 = whole queue)."""
+        if cls not in PRIORITY_CLASSES:
+            raise ValueError(
+                f"unknown priority {cls!r}; classes: {PRIORITY_CLASSES}"
+            )
+        with self._cond:
+            return self._admit_fraction[cls]
+
+    def set_admit_fraction(self, cls: str, fraction: float) -> None:
+        """Runtime admission-control knob (the SLO degradation hook).
+
+        Shrinking a class's fraction sheds its load at the admission
+        edge — over-budget submits reject/block immediately; growing it
+        back wakes blocked producers.  The limit floor of 1 mirrors
+        ``__init__``: no class is ever fully shut off.
+        """
+        if cls not in PRIORITY_CLASSES:
+            raise ValueError(
+                f"unknown priority {cls!r}; classes: {PRIORITY_CLASSES}"
+            )
+        if not 0.0 < fraction <= 1.0:
+            raise ValueError(
+                f"admit fraction must be in (0, 1], got {fraction}"
+            )
+        with self._cond:
+            self._admit_fraction[cls] = float(fraction)
+            self._admit_limit[cls] = max(1, int(self.queue_depth * fraction))
+            self._cond.notify_all()  # a raised limit unblocks waiters
+        if self._tel is not None:
+            self._tel.gauge(f"serve.admit_limit.{cls}", self._admit_limit[cls])
 
     @property
     def pending(self) -> int:
@@ -370,6 +414,12 @@ class MicroBatcher:
             self._tel.count("serve.batches")
             self._tel.count("serve.failed", len(live))
 
+    def _run_guarded(self, fn, arg):
+        """Route one batch execution through the step guard, if any."""
+        if self.guard is None:
+            return fn(arg)
+        return self.guard.run(lambda: fn(arg))
+
     def run_once(self, wait: bool = True) -> int:
         """One synchronous scheduler tick: coalesce → solve → resolve.
 
@@ -390,7 +440,7 @@ class MicroBatcher:
             span = tel.trace_span("batch", f"batch:{self.stats.batches}")
         with span:
             try:
-                results = self._solve_batch(specs)
+                results = self._run_guarded(self._solve_batch, specs)
                 if len(results) != len(specs):
                     raise RuntimeError(
                         f"solve_batch returned {len(results)} results for "
@@ -482,7 +532,7 @@ class MicroBatcher:
                 span = tel.trace_span("batch", f"batch:{self.stats.batches}")
             with span:
                 try:
-                    results = self._execute(item.prepared)
+                    results = self._run_guarded(self._execute, item.prepared)
                     if len(results) != len(item.live):
                         raise RuntimeError(
                             f"execute returned {len(results)} results for "

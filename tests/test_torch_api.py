@@ -6,9 +6,11 @@ docs parses to the same ``to_dict()`` and content hash in both packages.
 The quickstart spec without its ``obs`` section (the port's entry-point
 gate) runs through ``Session.run`` in both packages — equal solve ranking
 and ``outer_iters``, recovery metrics within 5e-3 — and through ``python
--m repro_torch run --device cpu`` as a subprocess.  Every section whose
-modules are not ported raises ``NotImplementedError`` naming its item of
-``ROADMAP.md``'s queue A; nothing falls back to the CPU unasked.
+-m repro_torch run --device cpu`` as a subprocess.  The ``obs`` and
+``ft`` sections, ``run --resume`` and the ``obs`` subcommand run and agree
+with ``repro``; every section whose modules are not ported raises
+``NotImplementedError`` naming its item of ``ROADMAP.md``'s queue A;
+nothing falls back to the CPU unasked.
 """
 
 import importlib
@@ -195,13 +197,19 @@ def test_cli_run_subprocess_writes_the_references_artifacts(tmp_path, reference_
     assert solve["ranking"]["candidates"] == reference_run[0]["solve"].ranking["candidates"]
 
 
-# ------------------------------------------------------- not ported: named
+# ---------------------------------------- ported sections, and the rest named
 
 
+def _quiet(*_a, **_k):
+    pass
+
+
+# each case: its spec overrides, and the queue item it names (None: ported,
+# so it runs and is held to the reference)
 NOT_PORTED_SPECS = [
-    ("obs_metrics", {"obs": {"level": "metrics"}}, "A.4"),
-    ("obs_slo", {"obs": json.loads(QUICKSTART.read_text())["obs"]}, "A.4"),
-    ("ft", {"ft": {"interval": 2}}, "A.5"),
+    ("obs_metrics", {"obs": {"level": "metrics"}}, None),
+    ("obs_slo", {"obs": json.loads(QUICKSTART.read_text())["obs"]}, None),
+    ("ft", {"ft": {"interval": 2}}, None),
     ("bench", {"bench": {"suites": ["lp_matrix"]}}, "A.6"),
     ("train", {"train": {"arch": "gcn-cora", "steps": 2}}, "A.9"),
     ("dryrun", {"dryrun": {}}, "A.9"),
@@ -213,17 +221,41 @@ NOT_PORTED_SPECS = [
     "overrides,item", [p[1:] for p in NOT_PORTED_SPECS], ids=[p[0] for p in NOT_PORTED_SPECS]
 )
 def test_unported_sections_raise_and_name_their_item(tmp_path, overrides, item):
+    """A section still to port raises, names its queue item and writes
+    nothing; a ported one (``obs``, ``ft``) runs like ``repro``'s."""
     d = _quickstart_without_obs()
     d.update(overrides)
     spec = ta.RunSpec.from_dict(d)
     session = ta.Session(spec, results_root=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"queue {item}"):
-        session.run()
-    assert not (tmp_path / spec.resolved_run_id()).exists()  # nothing written
-    # and through the CLI: exit 2, the message on stderr
     path = tmp_path / "spec.json"
     path.write_text(json.dumps(d))
-    assert tcli.main(["run", str(path), "--device", "cpu", "--no-write"]) == 2
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"queue {item}"):
+            session.run()
+        assert not (tmp_path / spec.resolved_run_id()).exists()  # nothing written
+        # and through the CLI: exit 2, the message on stderr
+        assert tcli.main(["run", str(path), "--device", "cpu", "--no-write"]) == 2
+        return
+    got = {a.kind: a for a in session.run(echo=_quiet)}
+    want = {a.kind: a for a in ra.Session(ra.RunSpec.from_dict(d),
+                                          results_root=str(tmp_path / "ref")).run(echo=_quiet)}
+    assert sorted(got) == sorted(want) == ["eval", "serve", "solve"]
+    assert got["solve"].ranking["candidates"] == want["solve"].ranking["candidates"]
+    assert got["solve"].outer_iters == want["solve"].outer_iters
+    assert sorted(got["solve"].ft) == sorted(want["solve"].ft)
+    assert sorted(got["serve"].ft) == sorted(want["serve"].ft)
+    assert sorted(got["serve"].slo) == sorted(want["serve"].slo)
+    assert got["serve"].report["queries"] == want["serve"].report["queries"]
+    run_dir = tmp_path / spec.resolved_run_id()
+    ref_dir = tmp_path / "ref" / spec.resolved_run_id()
+    assert sorted(os.listdir(run_dir)) == sorted(os.listdir(ref_dir))
+    if "obs" in overrides:
+        import repro.obs as ro
+
+        ro.validate_dir(str(run_dir / "telemetry"))  # the reference's schema gate
+    # checkpoints are written with --no-write too: keep them under tmp_path
+    assert tcli.main(["run", str(path), "--device", "cpu", "--no-write",
+                      "--results-root", str(tmp_path / "cli")]) == 0
 
 
 def test_unported_stage_methods_name_their_item():
@@ -235,34 +267,111 @@ def test_unported_stage_methods_name_their_item():
 
 
 @pytest.mark.parametrize("stage", ["solve", "serve_engine", "serve"])
-def test_ft_section_raises_on_each_stage_called_alone(stage):
+def test_ft_section_raises_on_each_stage_called_alone(tmp_path, stage):
+    """Each stage called alone runs with the ``ft`` section as
+    ``repro``'s does: the checkpointed solve, the FT envelope on the serve
+    engine, guarded serving."""
     d = _quickstart_without_obs()
     d["ft"] = {"interval": 2}
-    session = ta.Session(ta.RunSpec.from_dict(d), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A.5"):
-        getattr(session, stage)()
+    got = getattr(ta.Session(ta.RunSpec.from_dict(d), results_root=str(tmp_path / "t"),
+                             device="cpu"), stage)()
+    want = getattr(ra.Session(ra.RunSpec.from_dict(d), results_root=str(tmp_path / "r")),
+                   stage)()
+    if stage == "serve_engine":
+        assert sorted(got.ft_stats()) == sorted(want.ft_stats())
+        assert got.ft_stats()["checkpoints"] == want.ft_stats()["checkpoints"] == 1
+        got.close_ft()
+        want.close_ft()
+        return
+    assert sorted(got.ft) == sorted(want.ft)
+    if stage == "solve":
+        assert got.ranking["candidates"] == want.ranking["candidates"]
+        assert got.ft["checkpoints"] == want.ft["checkpoints"] > 0
+        assert got.ft["resumed_from"] is want.ft["resumed_from"] is None
+    else:  # a snapshot every 2 batches: the batching is the replay clock's
+        assert got.report["queries"] == want.report["queries"]
+        assert got.ft["checkpoints"] > 0 and want.ft["checkpoints"] > 0
+
+
+def _resume_spec():
+    """A solve-only spec with an ft section, stored where ``--resume``
+    looks for it after its first run died at superstep 3."""
+    d = _quickstart_without_obs()
+    for section in ("eval", "serve"):
+        d.pop(section)
+    d["ft"] = {"interval": 2, "inject_solve_fault": [3]}
+    return d
 
 
 @pytest.mark.parametrize(
     "argv,item",
     [
-        ([str(QUICKSTART), "--device", "cpu"], "A.4"),
-        (["--resume", "quickstart"], "A.5"),
+        ([str(QUICKSTART), "--device", "cpu"], None),
+        (["--resume", "quickstart", "--device", "cpu"], None),
         (["--network", "drugnet", "--bench", "--device", "cpu", "--no-write"], "A.6"),
-        (["--network", "drugnet", "--obs", "--device", "cpu", "--no-write"], "A.4"),
+        (["--network", "drugnet", "--obs", "--device", "cpu", "--no-write"], None),
     ],
     ids=["full_quickstart", "resume", "run_bench", "run_obs"],
 )
-def test_cli_run_names_the_queue_item(capsys, argv, item):
-    assert tcli.main(["run"] + argv) == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP.md queue {item}" in err
+def test_cli_run_names_the_queue_item(tmp_path, capsys, argv, item):
+    """``run`` exits 2 naming the queue item of what is still to port;
+    the full quickstart, ``--resume`` and ``--obs`` now run and print
+    what ``repro``'s CLI prints for the solve."""
+    from repro.launch.cli import run_main as r_run_main
+
+    if item is not None:
+        assert tcli.main(["run"] + argv) == 2
+        assert f"ROADMAP.md queue {item}" in capsys.readouterr().err
+        return
+    roots = [str(tmp_path / "t"), str(tmp_path / "r")]
+    if argv[0] == "--resume":
+        import repro.ft as rft
+        import repro_torch.ft as tft
+
+        (tmp_path / "spec.json").write_text(json.dumps(_resume_spec()))
+        with pytest.raises(tft.TransientWorkerError):
+            tcli.main(["run", str(tmp_path / "spec.json"), "--device", "cpu",
+                       "--results-root", roots[0]])
+        with pytest.raises(rft.TransientWorkerError):
+            r_run_main([str(tmp_path / "spec.json"), "--results-root", roots[1]])
+        capsys.readouterr()
+    rc = tcli.main(["run"] + argv + ["--results-root", roots[0]])
+    got = capsys.readouterr().out
+    assert rc == 0
+    ref_argv = [a for a in argv if a not in ("--device", "cpu")]
+    assert r_run_main(ref_argv + ["--results-root", roots[1]]) == 0
+    want = capsys.readouterr().out
+
+    def lines(out):  # the solve's ranking and checkpoints, the eval's metrics
+        keep = ("[solve] top-", "[solve] ft: ", "[eval] recovery")
+        return [ln.rsplit(" (", 1)[0] for ln in out.splitlines() if ln.startswith(keep)]
+
+    assert lines(got) == lines(want)
+    assert any(ln.startswith("[solve] top-") for ln in lines(got))
+    if argv[0] == "--resume":
+        assert "resumed_from=2" in got and "resumed_from=2" in want
 
 
-@pytest.mark.parametrize("cmd,item", [("obs", "A.4"), ("bench", "A.6")])
-def test_cli_unported_subcommands(capsys, cmd, item):
-    assert tcli.main([cmd]) == 2
-    assert f"ROADMAP.md queue {item}" in capsys.readouterr().err
+@pytest.mark.parametrize("cmd,item", [("obs", None), ("bench", "A.6")])
+def test_cli_unported_subcommands(tmp_path, capsys, cmd, item):
+    """``bench`` exits 2 naming its queue item; ``obs`` renders a run's
+    telemetry as ``repro``'s does."""
+    if item is not None:
+        assert tcli.main([cmd]) == 2
+        assert f"ROADMAP.md queue {item}" in capsys.readouterr().err
+        return
+    import repro.obs as ro
+    from repro.launch.cli import obs_main as r_obs_main
+
+    tel = ro.Telemetry("metrics", run_id="r1")
+    tel.count("serve.completed", 3)
+    tel.observe("serve.latency_s", 0.01)
+    tel.flush(str(tmp_path / "r1" / "telemetry"))
+    assert tcli.main([cmd, "--results-root", str(tmp_path), "--validate"]) == 0
+    got = capsys.readouterr().out
+    assert r_obs_main(["--results-root", str(tmp_path), "--validate"]) == 0
+    assert got == capsys.readouterr().out
+    assert "schema ok" in got and "run r1" in got
 
 
 def test_cli_solve_shim_refuses_sharded(capsys):
