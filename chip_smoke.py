@@ -114,14 +114,23 @@ Phases (each raises on failure, so the script exits non-zero):
     superstep 3, ``python -m repro_torch run --resume`` completes it, and
     its final F equals a clean checkpointed run's bit for bit, with the
     serve fault retried and every query answered;
-12. the kernel list: launches of each kernel on its path (phases 4-5 and
+12. the bench harness (``bench_phase``) on the card through the CLI:
+    (a) ``python -m repro_torch run examples/specs/bench_ci.json``, every
+    ported suite's fast pass, its ``BENCH_torch_ci.json`` valid and held
+    to ``benchmarks/baseline.json`` on every strict metric of the 48
+    record keys the port emits, the 17 it does not emit exactly the listed
+    ones (``BENCH_NOT_EMITTED``); (b) ``python -m repro_torch bench --full
+    --only kernels``, B2, B4, B5 and B6 at the reference's full sizes each
+    within the f32 tolerance of its plain version, timed beside it; (c)
+    the ``serve/obs_overhead`` record (obs off / metrics / streaming);
+13. the kernel list: launches of each kernel on its path (phases 4-5 and
     phase 11 (b)-(e) for ``csr_round_residual``, phases 4-5 for
     ``lp_round``, phases 6 and 11 (d) for ``csr_round``, phase 9 for
     ``csr_aggregate``, phase 10 for ``embedding_bag``, phase 10c for
     ``flash_attention``; all must be non-zero), with the phase 3, 8 and
     10a measurements (``csr_round_residual``'s error also over phase 11's
     serve widths);
-13. the result line.
+14. the result line.
 
 Phases 4, 6, 7, 9, 10, 10c and 11 each also trace calls with
 ``torch.profiler`` (after one untraced warm-up call).
@@ -908,16 +917,17 @@ def quiet(_line) -> None:
     pass
 
 
-def run_cli(args, *, timeout=600):
-    """``python -m repro_torch <args>`` from the checkout; returns the
-    finished process and its wall (s), process start included."""
+def run_cli(args, *, timeout=600, env=None):
+    """``python -m repro_torch <args>`` from the checkout (``env`` added to
+    the environment); returns the finished process and its wall (s),
+    process start included."""
     import os
 
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch", *args], cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(SRC)}, capture_output=True, text=True,
-        timeout=timeout,
+        env={**os.environ, "PYTHONPATH": str(SRC), **(env or {})}, capture_output=True,
+        text=True, timeout=timeout,
     )
     return proc, time.perf_counter() - t0
 
@@ -1422,6 +1432,155 @@ def entry_point_phase(torch, np, dev, bundle, main_solve, b1_ms, b3_ms) -> dict:
     b1_crash = crashdrill_phase(torch, np, dev, bundle, main_solve)
     return {"serve_b1": b1_serve + b1_obs + prof["csr_round_residual"] + b1_crash,
             "b3": prof["csr_round"], "b1_err": b1_err}
+
+
+# phase 12: the bench pass's host class (the port's baseline_h100.json was
+# taken under it), and the reference baseline's records the port does not
+# emit, with the queue item each waits for
+BENCH_HOST_CLASS = "h100-1card-sandbox"
+BENCH_NOT_EMITTED = {
+    "fig34_parallelism/d1s1@sharded1": "A.8",
+    "fig34_parallelism/d2s1@sharded2": "A.8",
+    "lp_matrix/dhlp2_sharded1@sharded1": "A.8",
+    "lp_matrix/dhlp2_sharded2@sharded2": "A.8",
+    "lp_matrix/dhlp2_sharded4@sharded4": "A.8",
+    "kernel_variants/drugnet_autotuned@sparse": "A.7",
+    "kernel_variants/autotune_cache@sparse": "A.7",
+    "lp_on_graph/dhlp2_lp@dense": "A.9.4",
+    "lp_on_graph/dhlp2_lp_csr@sparse": "A.9.4",
+    "lp_on_graph/gcn@gcn": "A.9.4",
+    "roofline/dhlp-bio/scale_1m@single": "A.9.5",
+    "roofline/dhlp-bio/scale_20m@single": "A.9.5",
+    "roofline/dhlp-bio/scale_1m@multi": "A.9.5",
+    # XLA's route through the oracles: the port's torch_ref records are
+    # their counterparts, under another backend key
+    "kernels/lp_round_ref_512x256@xla_ref": "-",
+    "kernels/csr_aggregate_ref_512x16@xla_ref": "-",
+    "kernels/embedding_bag_ref_b4096@xla_ref": "-",
+    "kernels/attention_ref_l256@xla_ref": "-",
+}
+
+
+def bench_report(path: Path, proc, what: str) -> dict:
+    """The report a bench pass wrote, validated under the port's schema,
+    with no failed suite and no error record."""
+    from repro_torch.bench.report import load_report
+    from repro_torch.bench.schema import record_key
+
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    if not path.is_file():
+        fail(f"{what} wrote no {path.name}")
+    doc = load_report(str(path))
+    bad = [record_key(r) for r in doc["records"] if r.get("error") is not None]
+    if bad or doc.get("errors"):
+        fail(f"{what}: error records {bad}, failed suites {doc.get('errors')}")
+    return doc
+
+
+def bench_phase() -> None:
+    """Phase 12: the bench harness on ``CLI_DEVICE``, through the CLI with
+    ``BENCH_HOST_CLASS`` set.  (a) ``run examples/specs/bench_ci.json``:
+    every ported suite's fast pass, a ``skipped`` line for each suite not
+    ported, ``BENCH_torch_ci.json`` valid with no error; its records held
+    to ``benchmarks/baseline.json`` (the reference's CPU records) restricted
+    to the keys the port emits on every strict metric, and the keys it does
+    not emit exactly ``BENCH_NOT_EMITTED``; the timing findings printed,
+    not gated (a CPU baseline against a card).  (b) ``bench --full --only
+    kernels``: every ``cuda`` record (B2, B4, B5, B6 at the reference's
+    full sizes) within the f32 tolerance of its plain version, its median
+    printed beside the ``torch_ref`` median.  (c) the ``serve/obs_overhead``
+    record's three qps and two overhead fractions."""
+    from repro_torch.bench.compare import compare_reports
+    from repro_torch.bench.driver import NOT_PORTED_SUITES
+    from repro_torch.bench.report import load_report
+    from repro_torch.bench.schema import record_key
+
+    env = {"BENCH_HOST_CLASS": BENCH_HOST_CLASS}
+    log("== phase 12 (a): python -m repro_torch run examples/specs/bench_ci.json")
+    ci_path = ROOT / "BENCH_torch_ci.json"
+    ci_path.unlink(missing_ok=True)
+    proc, wall = run_cli(["run", "examples/specs/bench_ci.json", "--device", CLI_DEVICE],
+                         env=env, timeout=900)
+    doc = bench_report(ci_path, proc, "run examples/specs/bench_ci.json")
+    lines = proc.stdout.splitlines()
+    for suite, item in NOT_PORTED_SUITES.items():
+        if f"skipped {suite}: not ported (ROADMAP {item})" not in lines:
+            fail(f"the bench pass printed no skipped line for {suite} ({item})")
+    envd = doc["environment"]
+    log(f"  exit 0 in {wall:.1f} s (process start included), {len(doc['records'])} records; "
+        f"environment: {envd['device_kind']} x{envd['device_count']}, backend "
+        f"{envd['backend']}, sm_{envd.get('compute_capability')}, {envd.get('sm_count')} SMs, "
+        f"{envd.get('power_limit')}, host_class {envd['host_class']}")
+    for line in lines:
+        if line.startswith(("skipped", "lp_matrix:", "kernel_variants:", "[bench]")):
+            log(f"    {line}")
+    base = load_report(str(ROOT / "benchmarks" / "baseline.json"))
+    got = {record_key(r) for r in doc["records"]}
+    absent = {record_key(r) for r in base["records"]} - got
+    if absent != set(BENCH_NOT_EMITTED):
+        fail(f"baseline keys not emitted: {sorted(absent - set(BENCH_NOT_EMITTED))} missing "
+             f"beyond the listed ones; {sorted(set(BENCH_NOT_EMITTED) - absent)} listed but "
+             "emitted")
+    base["records"] = [r for r in base["records"] if record_key(r) in got]
+    res = compare_reports(base, doc)
+    n_strict = sum(len(r.get("strict", [])) for r in base["records"])
+    if not res.ok or res.compared != len(base["records"]):
+        for f in res.regressions:
+            log(f"    [{f.kind}] {f.key} {f.metric}: {f.baseline} -> {f.candidate} {f.detail}")
+        fail(f"the bench pass against benchmarks/baseline.json: {len(res.regressions)} "
+             f"regressions over {res.compared} records")
+    log(f"  {res.compared} records ({n_strict} strict metrics) held to benchmarks/baseline.json "
+        f"restricted to the emitted keys: PASS; the {len(absent)} keys not emitted are "
+        f"exactly the listed ones; new keys {res.new_keys}")
+    log(f"  timing vs the reference's CPU baseline (not gated, env_match={res.env_match}): "
+        f"{len(res.warnings)} slower beyond 30 %, {len(res.improvements)} faster beyond 30 %")
+    base_s = {record_key(r): r["stats"]["median_s"] for r in base["records"]}
+    for r in doc["records"]:
+        key = record_key(r)
+        ref = f"{base_s[key] * 1e3:.3f} ms" if key in base_s else "-"
+        log(f"    {key}: median {r['stats']['median_s'] * 1e3:.3f} ms (reference CPU {ref})")
+    # the port's own card baseline, as `python -m repro_torch.bench.compare`
+    # holds it: every key and strict metric gated, wall times reported
+    mine = compare_reports(load_report(str(SRC / "repro_torch" / "bench" / "baseline_h100.json")),
+                           doc, gate_timing=False)
+    if not mine.ok:
+        for f in mine.regressions:
+            log(f"    [{f.kind}] {f.key} {f.metric}: {f.baseline} -> {f.candidate} {f.detail}")
+        fail(f"the bench pass against baseline_h100.json: {len(mine.regressions)} regressions")
+    log(f"  against the port's baseline_h100.json: PASS on {mine.compared} records "
+        f"(env_match={mine.env_match}); wall times reported, not gated: "
+        f"{sum(f.kind == 'timing' for f in mine.warnings)} slower and "
+        f"{len(mine.improvements)} faster beyond 30 %")
+
+    log("== phase 12 (b): python -m repro_torch bench --full --only kernels")
+    full_path = ROOT / "BENCH_torch_kernels_full.json"
+    full_path.unlink(missing_ok=True)
+    proc, wall_b = run_cli(["bench", "--full", "--only", "kernels", "--device", CLI_DEVICE,
+                            "--label", "kernels_full"], env=env, timeout=600)
+    full = bench_report(full_path, proc, "bench --full --only kernels")
+    refs = {r["name"]: r for r in full["records"] if r["backend"] == "torch_ref"}
+    cuda = [r for r in full["records"] if r["backend"] == "cuda"]
+    if len(refs) != 4 or len(cuda) != (4 if CLI_DEVICE != "cpu" else 0):
+        fail(f"bench --full --only kernels: {len(refs)} torch_ref and {len(cuda)} cuda records")
+    log(f"  exit 0 in {wall_b:.1f} s (process start included)")
+    for r in cuda:
+        d = r["derived"]
+        if d["agree_ref"] != 1.0:
+            fail(f"kernels/{r['name']}@cuda: max|Δ| {d['max_abs_diff_vs_ref']:.3e} vs its plain "
+                 "version, outside rtol=2e-4, atol=5e-4")
+        ref = refs[r["name"]]["stats"]["median_s"]
+        log(f"    {r['name']}: kernel {r['stats']['median_s'] * 1e3:.4f} ms, plain "
+            f"{ref * 1e3:.4f} ms ({d['speedup_vs_ref']:.2f}x), max|Δ| "
+            f"{d['max_abs_diff_vs_ref']:.3e}, agree_ref 1 ({r['params']})")
+
+    log("== phase 12 (c): serve/obs_overhead, the batched burst at obs off / metrics / streaming")
+    ab = next(r for r in doc["records"] if record_key(r) == "serve/obs_overhead@dense")
+    d = ab["derived"]
+    log(f"  qps_off {d['qps_off']:.1f}, qps_metrics {d['qps_metrics']:.1f}, qps_streaming "
+        f"{d['qps_streaming']:.1f}; overhead_frac {d['overhead_frac']:.4f}, "
+        f"overhead_frac_streaming {d['overhead_frac_streaming']:.4f} "
+        f"({ab['params']['queries']} queries a burst, best of 5)")
 
 
 def main() -> int:
@@ -2247,8 +2406,13 @@ def main() -> int:
     entry = entry_point_phase(torch, np, dev, bundle, res_k, b1_ms, b3_ms)
     del res_k
 
-    # ------------------------------------------------ 12. the kernel list
-    log("== phase 12: kernels")
+    # --------------------------------------------- 12. the bench harness
+    t0 = time.perf_counter()
+    bench_phase()
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ 13. the kernel list
+    log("== phase 13: kernels")
     counts["csr_round_residual"] += entry["serve_b1"]
     b1_err = max(b1_err, entry["b1_err"])
     counts["csr_round"] = legacy_counts["csr_round"] + entry["b3"]
@@ -2341,7 +2505,7 @@ def main() -> int:
     log(f"  total {time.perf_counter() - t_script:.1f} s")
     print(smi_name_and_limit(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # ----------------------------------------------------- 13. the result
+    # ----------------------------------------------------- 14. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -17,10 +17,10 @@ solve masked copies of the network, and letting those churn the main
 engine's single-entry operator cache would force serve to re-prepare.
 
 Every engine of a session runs on its ``device`` (``None`` = ``cuda:0``,
-which raises without CUDA; the CPU only with ``device="cpu"``).  The
-stages whose modules are not ported yet raise ``NotImplementedError``
-naming their item of ``ROADMAP.md``'s queue A: ``bench`` (A.6), the
-``sharded`` backend (A.8), ``train`` and ``dryrun`` (A.9).
+which raises without CUDA; the CPU only with ``device="cpu"``), and so
+does the ``bench`` pass.  The stages whose modules are not ported yet
+raise ``NotImplementedError`` naming their item of ``ROADMAP.md``'s
+queue A: the ``sharded`` backend (A.8), ``train`` and ``dryrun`` (A.9).
 """
 
 from __future__ import annotations
@@ -41,12 +41,12 @@ from repro_torch.api.artifacts import (
     TrainArtifact,
     _write_json,
 )
-from repro_torch.api.spec import EvalSpec, RunSpec, ServeSpec, SpecError
+from repro_torch.api.spec import BenchSpec, EvalSpec, RunSpec, ServeSpec, SpecError
 from repro_torch.device import DeviceLike, resolve_device
 
 _UNSET = object()
 # run sections whose modules are not ported yet -> their ROADMAP.md item
-_NOT_PORTED_STAGES = {"bench": "A.6", "train": "A.9", "dryrun": "A.9"}
+_NOT_PORTED_STAGES = {"train": "A.9", "dryrun": "A.9"}
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -582,7 +582,28 @@ class Session:
 
     # ------------------------------------------- bench / train / dryrun
     def bench(self, *, write: bool = True) -> BenchArtifact:
-        raise not_ported("the bench section", _NOT_PORTED_STAGES["bench"])
+        """Run the spec's ``bench`` section (every suite when absent) on
+        the session's device."""
+        from repro_torch.bench.driver import run_bench
+
+        bench = self.spec.bench if self.spec.bench is not None else BenchSpec()
+        t0 = time.perf_counter()
+        outcome = run_bench(
+            fast=bench.fast,
+            only=list(bench.suites) if bench.suites else None,
+            label=bench.resolved_label(),
+            write=write,
+            device=self.device,
+        )
+        return BenchArtifact(
+            run_id=self.run_id,
+            seconds=time.perf_counter() - t0,
+            label=bench.resolved_label(),
+            suites=outcome.suites,
+            records=outcome.records,
+            failures=outcome.failures,
+            report_paths=outcome.paths,
+        )
 
     def train(self, *, echo=print) -> TrainArtifact:
         raise not_ported("the train section", _NOT_PORTED_STAGES["train"])
@@ -624,6 +645,10 @@ class Session:
         for name in names:
             if name in _NOT_PORTED_STAGES:
                 raise not_ported(f"the {name} section", _NOT_PORTED_STAGES[name])
+        if "bench" in names and self.spec.bench is not None:
+            from repro_torch.bench.driver import refuse_unported
+
+            refuse_unported(self.spec.bench.suites)
         if write:
             os.makedirs(self.run_dir, exist_ok=True)
             _write_json(os.path.join(self.run_dir, "spec.json"), self.spec.to_dict())

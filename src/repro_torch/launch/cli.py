@@ -8,12 +8,13 @@ thin argparse layer over that API:
 
 * ``run``       — the driver: a spec file, or flags that build one;
 * ``obs``       — render/validate a run's telemetry (DESIGN.md §14);
-* ``solve``, ``serve``, ``scenario`` — legacy-surface subcommands: the
-  flag surfaces of the retired ``repro_torch.launch.*`` module entry
-  points, kept as positional subcommands;
-* ``bench`` — not ported yet (``ROADMAP.md`` queue item A.6): it exits 2
-  and names its item, as does ``run`` for a spec section whose modules
-  are not ported.
+* ``solve``, ``serve``, ``scenario``, ``bench`` — legacy-surface
+  subcommands: the flag surfaces of the retired
+  ``repro_torch.launch.*`` module entry points (and of
+  ``benchmarks/run.py``), kept as positional subcommands.
+
+A spec section, backend or bench suite whose modules are not ported yet
+exits 2 and names its item of ``ROADMAP.md``'s queue A.
 
 Every subcommand that solves takes ``--device`` (default ``cuda``; there
 is no fallback to the CPU, which runs only with ``--device cpu``).
@@ -34,10 +35,9 @@ import sys
 import warnings
 from typing import Any, Dict, List, Optional
 
+from repro_torch.bench.matrix import AGREEMENT_TOL
+
 ARRIVAL_CHOICES = ("poisson", "bursty", "diurnal")
-# the scenario sweep's agreement gate: repro.bench.matrix.AGREEMENT_TOL,
-# the agree_dense tolerance (DESIGN.md §15.3)
-AGREEMENT_TOL = 5e-3
 
 
 def _add_device(ap: argparse.ArgumentParser) -> None:
@@ -235,7 +235,7 @@ def _run_parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--full",
         action="store_true",
-        help="bench at paper scale (needs 8 devices)",
+        help="bench at paper scale",
     )
     ap.add_argument("--label", default=None, help="bench report label")
     return ap
@@ -1008,12 +1008,65 @@ def scenario_main(argv: Optional[List[str]] = None) -> int:
 
 
 # --------------------------------------------------------------------------
-# repro_torch bench: not ported yet
+# repro_torch bench (deprecation shim for benchmarks/run.py)
 # --------------------------------------------------------------------------
 def bench_main(argv: Optional[List[str]] = None) -> int:
-    from repro_torch.api.session import not_ported
+    _warn_deprecated(
+        "the standalone bench CLI",
+        "e.g. `python -m repro_torch run --bench` or a spec with a bench section",
+    )
+    ap = argparse.ArgumentParser(prog="repro_torch bench")
+    ap.add_argument(
+        "--full",
+        action="store_true",
+        help="paper-scale parameters",
+    )
+    ap.add_argument("--only", default=None, help="comma-separated suite names")
+    ap.add_argument(
+        "--label",
+        default=None,
+        help="report label (default: ci, or full with --full)",
+    )
+    ap.add_argument(
+        "--no-write",
+        action="store_true",
+        help="skip writing BENCH_torch_<label>.json / results/",
+    )
+    ap.add_argument(
+        "--list",
+        action="store_true",
+        help="list registered suites and exit",
+    )
+    _add_device(ap)
+    args, _ = ap.parse_known_args(argv)
 
-    raise not_ported("the bench subcommand", "A.6")
+    from repro_torch.bench.driver import import_suite_modules, run_bench
+
+    if args.list:
+        from repro_torch.bench import all_suites
+
+        import_suite_modules()
+        for s in all_suites():
+            print(f"{s.name}: {s.description}")
+        return 0
+    try:
+        outcome = run_bench(
+            fast=not args.full,
+            only=_split_csv(args.only),
+            label=args.label,
+            write=not args.no_write,
+            echo=lambda line: print(line, flush=True),
+            device=args.device,
+        )
+    except RuntimeError as e:  # CUDA asked for and missing, or a suite not ported
+        print(f"bench: {e}", file=sys.stderr)
+        return 2
+    print(
+        f"suites={len(outcome.suites)} records={outcome.records} "
+        f"failures={outcome.failures}",
+        file=sys.stderr,
+    )
+    return 1 if outcome.failures else 0
 
 
 # --------------------------------------------------------------------------
@@ -1191,9 +1244,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"usage: python -m repro_torch {{{names}}} ...\n")
         print(
             "`run` executes a declarative RunSpec (DESIGN.md §13); `obs` "
-            "renders a\nrun's telemetry (§14); `solve`, `serve` and `scenario` "
-            "are deprecation\nshims for the retired standalone CLIs; `bench` "
-            "is not ported yet."
+            "renders a\nrun's telemetry (§14); `solve`, `serve`, `scenario` "
+            "and `bench` are\ndeprecation shims for the retired standalone CLIs."
         )
         return 0
     cmd, rest = argv[0], argv[1:]

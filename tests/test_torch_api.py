@@ -210,7 +210,7 @@ NOT_PORTED_SPECS = [
     ("obs_metrics", {"obs": {"level": "metrics"}}, None),
     ("obs_slo", {"obs": json.loads(QUICKSTART.read_text())["obs"]}, None),
     ("ft", {"ft": {"interval": 2}}, None),
-    ("bench", {"bench": {"suites": ["lp_matrix"]}}, "A.6"),
+    ("bench", {"bench": {"suites": ["table7_sigma"]}}, None),
     ("train", {"train": {"arch": "gcn-cora", "steps": 2}}, "A.9"),
     ("dryrun", {"dryrun": {}}, "A.9"),
     ("sharded", {"solve": {"backend": "sharded", "devices": 1, "seed_mode": "fixed"}}, "A.8"),
@@ -236,6 +236,14 @@ def test_unported_sections_raise_and_name_their_item(tmp_path, overrides, item):
         # and through the CLI: exit 2, the message on stderr
         assert tcli.main(["run", str(path), "--device", "cpu", "--no-write"]) == 2
         return
+    if "bench" in overrides:  # ported (A.6): one cheap suite, written nowhere
+        got = session.bench(write=False)
+        want = ra.Session(ra.RunSpec.from_dict(d)).bench(write=False)
+        assert (got.label, got.suites, got.records, got.failures) == ("ci", ["table7_sigma"], 12, 0)
+        assert (got.suites, got.records, got.failures) == (want.suites, want.records, want.failures)
+        assert tcli.main(["run", str(path), "--only", "bench", "--device", "cpu",
+                          "--no-write"]) == 0
+        return
     got = {a.kind: a for a in session.run(echo=_quiet)}
     want = {a.kind: a for a in ra.Session(ra.RunSpec.from_dict(d),
                                           results_root=str(tmp_path / "ref")).run(echo=_quiet)}
@@ -258,12 +266,21 @@ def test_unported_sections_raise_and_name_their_item(tmp_path, overrides, item):
                       "--results-root", str(tmp_path / "cli")]) == 0
 
 
-def test_unported_stage_methods_name_their_item():
-    spec = ta.RunSpec.from_dict(_quickstart_without_obs())
-    session = ta.Session(spec, device="cpu")
-    for call, item in ((session.bench, "A.6"), (session.train, "A.9"), (session.dryrun, "A.9")):
+def test_unported_stage_methods_name_their_item(tmp_path):
+    """``bench`` runs on the session's device (here the CPU); ``train`` and
+    ``dryrun`` name their item, and so does a bench suite not ported yet,
+    before the run writes anything."""
+    spec = ta.RunSpec.from_dict(_quickstart_without_obs(bench={"suites": ["table7_sigma"]}))
+    session = ta.Session(spec, results_root=str(tmp_path), device="cpu")
+    art = session.bench(write=False)
+    assert (art.suites, art.records, art.failures, art.report_paths) == (["table7_sigma"], 12, 0, [])
+    for call, item in ((session.train, "A.9"), (session.dryrun, "A.9")):
         with pytest.raises(NotImplementedError, match=f"queue {item}"):
             call()
+    spec = ta.RunSpec.from_dict(_quickstart_without_obs(bench={"suites": ["roofline"]}))
+    with pytest.raises(NotImplementedError, match=r"queue A\.9\.5"):
+        ta.Session(spec, results_root=str(tmp_path), device="cpu").run(["bench"])
+    assert not list(tmp_path.iterdir())  # refused before spec.json was written
 
 
 @pytest.mark.parametrize("stage", ["solve", "serve_engine", "serve"])
@@ -308,15 +325,16 @@ def _resume_spec():
     [
         ([str(QUICKSTART), "--device", "cpu"], None),
         (["--resume", "quickstart", "--device", "cpu"], None),
-        (["--network", "drugnet", "--bench", "--device", "cpu", "--no-write"], "A.6"),
+        (["--network", "drugnet", "--bench", "table7_sigma", "--device", "cpu", "--no-write"],
+         None),
         (["--network", "drugnet", "--obs", "--device", "cpu", "--no-write"], None),
     ],
     ids=["full_quickstart", "resume", "run_bench", "run_obs"],
 )
 def test_cli_run_names_the_queue_item(tmp_path, capsys, argv, item):
     """``run`` exits 2 naming the queue item of what is still to port;
-    the full quickstart, ``--resume`` and ``--obs`` now run and print
-    what ``repro``'s CLI prints for the solve."""
+    the full quickstart, ``--resume``, ``--bench`` and ``--obs`` now run
+    and print what ``repro``'s CLI prints for the solve (the bench pass)."""
     from repro.launch.cli import run_main as r_run_main
 
     if item is not None:
@@ -342,23 +360,40 @@ def test_cli_run_names_the_queue_item(tmp_path, capsys, argv, item):
     assert r_run_main(ref_argv + ["--results-root", roots[1]]) == 0
     want = capsys.readouterr().out
 
-    def lines(out):  # the solve's ranking and checkpoints, the eval's metrics
-        keep = ("[solve] top-", "[solve] ft: ", "[eval] recovery")
+    def lines(out):  # the solve's ranking and checkpoints, the eval's metrics, the bench
+        keep = ("[solve] top-", "[solve] ft: ", "[eval] recovery", "[bench] label=")
         return [ln.rsplit(" (", 1)[0] for ln in out.splitlines() if ln.startswith(keep)]
 
     assert lines(got) == lines(want)
-    assert any(ln.startswith("[solve] top-") for ln in lines(got))
+    assert any(ln.startswith(("[solve] top-", "[bench] label=ci suites=1 records=12"))
+               for ln in lines(got))
     if argv[0] == "--resume":
         assert "resumed_from=2" in got and "resumed_from=2" in want
 
 
-@pytest.mark.parametrize("cmd,item", [("obs", None), ("bench", "A.6")])
-def test_cli_unported_subcommands(tmp_path, capsys, cmd, item):
-    """``bench`` exits 2 naming its queue item; ``obs`` renders a run's
+# ids kept from when ``bench`` still named its queue item, A.6
+@pytest.mark.parametrize("cmd", ["obs", "bench"], ids=["obs-None", "bench-A.6"])
+def test_cli_unported_subcommands(tmp_path, capsys, cmd):
+    """``bench`` runs a suite on the CPU and prints the records ``repro``'s
+    ``bench`` prints (the metrics, not the times); ``obs`` renders a run's
     telemetry as ``repro``'s does."""
-    if item is not None:
-        assert tcli.main([cmd]) == 2
-        assert f"ROADMAP.md queue {item}" in capsys.readouterr().err
+    if cmd == "bench":
+        from repro.launch.cli import bench_main as r_bench_main
+
+        argv = ["--only", "table7_sigma", "--no-write"]
+        with pytest.warns(DeprecationWarning, match="repro_torch run"):
+            assert tcli.main([cmd, *argv, "--device", "cpu"]) == 0
+        got = capsys.readouterr()
+        with pytest.warns(DeprecationWarning):
+            assert r_bench_main(argv) == 0
+        want = capsys.readouterr()
+
+        def records(out):  # name and derived metrics of each record line
+            return [(f[0], f[2]) for f in (ln.split(",") for ln in out.splitlines())
+                    if f[0].startswith("table7_sigma/")]
+
+        assert records(got.out) == records(want.out) and len(records(got.out)) == 12
+        assert got.err.splitlines()[-1] == "suites=1 records=12 failures=0"
         return
     import repro.obs as ro
     from repro.launch.cli import obs_main as r_obs_main
