@@ -117,20 +117,39 @@ Phases (each raises on failure, so the script exits non-zero):
 12. the bench harness (``bench_phase``) on the card through the CLI:
     (a) ``python -m repro_torch run examples/specs/bench_ci.json``, every
     ported suite's fast pass, its ``BENCH_torch_ci.json`` valid and held
-    to ``benchmarks/baseline.json`` on every strict metric of the 48
-    record keys the port emits, the 17 it does not emit exactly the listed
-    ones (``BENCH_NOT_EMITTED``); (b) ``python -m repro_torch bench --full
+    to ``benchmarks/baseline.json`` on every strict metric of the 52
+    record keys the port emits on one card, the 13 it does not emit
+    exactly the listed ones (``bench_not_emitted``: the suites not ported,
+    XLA's records, and the ``sharded`` points that need more cards); (b)
+    ``python -m repro_torch bench --full
     --only kernels``, B2, B4, B5 and B6 at the reference's full sizes each
     within the f32 tolerance of its plain version, timed beside it; (c)
     the ``serve/obs_overhead`` record (obs off / metrics / streaming);
-13. the kernel list: launches of each kernel on its path (phases 4-5 and
-    phase 11 (b)-(e) for ``csr_round_residual``, phases 4-5 for
-    ``lp_round``, phases 6 and 11 (d) for ``csr_round``, phase 9 for
-    ``csr_aggregate``, phase 10 for ``embedding_bag``, phase 10c for
+13. the autotune sweep and the sharded engine at full width (phase 4's
+    network): (a) ``ensure_tuned`` cold into a fresh directory at S =
+    4,396, each layout's torch-op round and each ``slots_per_block``'s B1
+    round timed and printed, a second call a hit that times nothing, the
+    ``kernel`` solve with ``autotune=True`` (fused, and legacy through B3)
+    on the tuned layout held to phase 4 (equal rounds, max|ΔF| ≤ 5e-3,
+    top-10), then B1 on every bucket of the tuned plan at every
+    ``slots_per_block`` of the grid and B3 on every bucket of the tuned
+    legacy layout held to their plain versions at the f32 tolerance;
+    (b) the ``sharded`` engine on a world of one NCCL rank: the DHLP-2
+    all-sources solve held to phase 4, ``stale_sync=4`` within 1e-3 of
+    it with no fewer rounds, bf16 compression within 5e-3, DHLP-1 held to
+    phase 7's ``sparse`` solve with equal rounds, ``python -m repro_torch
+    run --backend sharded --devices 1``, 64 queries served on ``sharded``
+    with the ``kernel`` serve engine's top-10 lists, a ``remesh`` of the
+    solve's state onto a one-device mesh, bit for bit; wall per round
+    beside B1's;
+14. the kernel list: launches of each kernel on its path (phases 4-5,
+    11 (b)-(e) and 13 (a) for ``csr_round_residual``, phases 4-5 for
+    ``lp_round``, phases 6, 11 (d) and 13 (a) for ``csr_round``, phase 9
+    for ``csr_aggregate``, phase 10 for ``embedding_bag``, phase 10c for
     ``flash_attention``; all must be non-zero), with the phase 3, 8 and
-    10a measurements (``csr_round_residual``'s error also over phase 11's
-    serve widths);
-14. the result line.
+    10a measurements (``csr_round_residual``'s and ``csr_round``'s error
+    also over phases 11 and 13's shapes);
+15. the result line.
 
 Phases 4, 6, 7, 9, 10, 10c and 11 each also trace calls with
 ``torch.profiler`` (after one untraced warm-up call).
@@ -1436,16 +1455,9 @@ def entry_point_phase(torch, np, dev, bundle, main_solve, b1_ms, b3_ms) -> dict:
 
 # phase 12: the bench pass's host class (the port's baseline_h100.json was
 # taken under it), and the reference baseline's records the port does not
-# emit, with the queue item each waits for
+# emit, with the queue item or the cards each waits for
 BENCH_HOST_CLASS = "h100-1card-sandbox"
-BENCH_NOT_EMITTED = {
-    "fig34_parallelism/d1s1@sharded1": "A.8",
-    "fig34_parallelism/d2s1@sharded2": "A.8",
-    "lp_matrix/dhlp2_sharded1@sharded1": "A.8",
-    "lp_matrix/dhlp2_sharded2@sharded2": "A.8",
-    "lp_matrix/dhlp2_sharded4@sharded4": "A.8",
-    "kernel_variants/drugnet_autotuned@sparse": "A.7",
-    "kernel_variants/autotune_cache@sparse": "A.7",
+BENCH_NOT_PORTED = {
     "lp_on_graph/dhlp2_lp@dense": "A.9.4",
     "lp_on_graph/dhlp2_lp_csr@sparse": "A.9.4",
     "lp_on_graph/gcn@gcn": "A.9.4",
@@ -1459,6 +1471,20 @@ BENCH_NOT_EMITTED = {
     "kernels/embedding_bag_ref_b4096@xla_ref": "-",
     "kernels/attention_ref_l256@xla_ref": "-",
 }
+
+
+def bench_not_emitted(cards: int) -> dict:
+    """The baseline keys a bench pass on ``cards`` cards does not emit:
+    ``BENCH_NOT_PORTED``, the ``fig34_parallelism`` points that need more
+    cards, and the ``lp_matrix`` columns that need a world of more ranks
+    (the pass runs as one process: a world of one rank)."""
+    out = dict(BENCH_NOT_PORTED)
+    for k in (1, 2):
+        if k > cards:
+            out[f"fig34_parallelism/d{k}s1@sharded{k}"] = f"needs {k} GPUs"
+    for k in (2, 4):
+        out[f"lp_matrix/dhlp2_sharded{k}@sharded{k}"] = f"needs {k} GPUs"
+    return out
 
 
 def bench_report(path: Path, proc, what: str) -> dict:
@@ -1485,7 +1511,7 @@ def bench_phase() -> None:
     ported, ``BENCH_torch_ci.json`` valid with no error; its records held
     to ``benchmarks/baseline.json`` (the reference's CPU records) restricted
     to the keys the port emits on every strict metric, and the keys it does
-    not emit exactly ``BENCH_NOT_EMITTED``; the timing findings printed,
+    not emit exactly ``bench_not_emitted(cards)``; the timing findings printed,
     not gated (a CPU baseline against a card).  (b) ``bench --full --only
     kernels``: every ``cuda`` record (B2, B4, B5, B6 at the reference's
     full sizes) within the f32 tolerance of its plain version, its median
@@ -1513,15 +1539,15 @@ def bench_phase() -> None:
         f"{envd['backend']}, sm_{envd.get('compute_capability')}, {envd.get('sm_count')} SMs, "
         f"{envd.get('power_limit')}, host_class {envd['host_class']}")
     for line in lines:
-        if line.startswith(("skipped", "lp_matrix:", "kernel_variants:", "[bench]")):
+        if line.startswith(("skipped", "lp_matrix:", "fig34_parallelism:", "[bench]")):
             log(f"    {line}")
     base = load_report(str(ROOT / "benchmarks" / "baseline.json"))
     got = {record_key(r) for r in doc["records"]}
     absent = {record_key(r) for r in base["records"]} - got
-    if absent != set(BENCH_NOT_EMITTED):
-        fail(f"baseline keys not emitted: {sorted(absent - set(BENCH_NOT_EMITTED))} missing "
-             f"beyond the listed ones; {sorted(set(BENCH_NOT_EMITTED) - absent)} listed but "
-             "emitted")
+    listed = bench_not_emitted(envd["device_count"])
+    if absent != set(listed):
+        fail(f"baseline keys not emitted: {sorted(absent - set(listed))} missing "
+             f"beyond the listed ones; {sorted(set(listed) - absent)} listed but emitted")
     base["records"] = [r for r in base["records"] if record_key(r) in got]
     res = compare_reports(base, doc)
     n_strict = sum(len(r.get("strict", [])) for r in base["records"])
@@ -1532,7 +1558,13 @@ def bench_phase() -> None:
              f"regressions over {res.compared} records")
     log(f"  {res.compared} records ({n_strict} strict metrics) held to benchmarks/baseline.json "
         f"restricted to the emitted keys: PASS; the {len(absent)} keys not emitted are "
-        f"exactly the listed ones; new keys {res.new_keys}")
+        f"exactly the listed ones ({sorted(set(listed.values()))}); new keys {res.new_keys}")
+    for key in sorted(got & {record_key(r) for r in base["records"]}):
+        if key.startswith(("fig34_parallelism/", "lp_matrix/dhlp2_sharded",
+                           "kernel_variants/drugnet_autotuned",
+                           "kernel_variants/autotune_cache")):
+            r = next(x for x in doc["records"] if record_key(x) == key)
+            log(f"    {key}: " + ", ".join(f"{m} {r['derived'][m]:g}" for m in r["strict"]))
     log(f"  timing vs the reference's CPU baseline (not gated, env_match={res.env_match}): "
         f"{len(res.warnings)} slower beyond 30 %, {len(res.improvements)} faster beyond 30 %")
     base_s = {record_key(r): r["stats"]["median_s"] for r in base["records"]}
@@ -1583,6 +1615,267 @@ def bench_phase() -> None:
         f"({ab['params']['queries']} queries a burst, best of 5)")
 
 
+# phase 13: the autotune sweep and the sharded engine.  In-process phases
+# read the autotune cache under AUTOTUNE_DIR (emptied at the start); the
+# CLI phases run from the checkout, whose results/autotune is emptied too.
+AUTOTUNE_DIR = ROOT / "build" / "chip_smoke_autotune"
+SHARDED_SERVE_QUERIES = 64  # drugs 0-63, one by one, on sharded and kernel
+
+
+def tuned_kernel_gates(torch, np, n, plan, legacy, params, s=None) -> tuple:
+    """Phase 13 (a): B1 on every bucket of the tuned fused ``plan`` at each
+    ``slots_per_block`` of the sweep's grid, and B3 on every bucket of the
+    ``legacy`` layout (if any) at the winning one, against their plain
+    versions at ``F32_TOL`` (S = ``s``, default n).  Returns (B1's, B3's)
+    max|Δ|."""
+    from repro_torch.engine.autotune import PANEL_GRID
+    from repro_torch.kernels.segment_reduce import (
+        csr_round_op,
+        csr_round_ref,
+        csr_round_residual_op,
+        csr_round_residual_ref,
+    )
+
+    gen = torch.Generator(device=plan[1].device).manual_seed(13)
+    F, base, prev = (torch.rand((n, s or n), generator=gen, device=plan[1].device)
+                     for _ in range(3))
+    b1 = b3 = 0.0
+    for spb in PANEL_GRID:
+        off = 0
+        for nbr, wgt, live in plan[0]:
+            m = nbr.shape[0]
+            sl = slice(off, off + m)
+            got, got_d = csr_round_residual_op(nbr, wgt, F, base[sl], prev[sl], c=0.25,
+                                               live=live, slots_per_block=spb)
+            want, want_d = csr_round_residual_ref(nbr, wgt, F, base[sl], prev[sl], 0.25)
+            tag = f"csr_round_residual tuned plan ({m}x{nbr.shape[1]}, slots_per_block {spb})"
+            b1 = max(b1, check_close(np, tag, got, want, F32_TOL, quiet=True))
+            check_close(np, tag + " delta", got_d.amax(dim=0, keepdim=True), want_d, F32_TOL,
+                        quiet=True)
+            off += m
+    for rows, nbr, wgt, live in legacy or ():
+        got = csr_round_op(nbr, wgt, F, base[rows], c=0.25, live=live,
+                           slots_per_block=params.slots_per_block)
+        want = csr_round_ref(nbr, wgt, F, base[rows], 0.25)
+        b3 = max(b3, check_close(
+            np, f"csr_round tuned legacy layout ({nbr.shape[0]}x{nbr.shape[1]})", got, want,
+            F32_TOL, quiet=True))
+    torch.cuda.synchronize()
+    return b1, b3
+
+
+def autotune_phase(torch, np, dev, net, main_solve, top_main) -> dict:
+    """Phase 13 (a): ``ensure_tuned`` cold into ``AUTOTUNE_DIR`` at S = n,
+    each candidate's time and the winner printed; a second call is a hit
+    that times nothing; the ``kernel`` solve with ``autotune=True`` carries
+    the tuned layout and block sizing and agrees with phase 4 (equal
+    rounds, max|ΔF| ≤ 5e-3, top-10), and so does the legacy solve on the
+    tuned layout; then B1 and B3 at every shape the sweep and these solves
+    launched (``tuned_kernel_gates``).  Returns the launches and errors."""
+    from repro_torch.core import extract_outputs, topk_exclusive
+    from repro_torch.core.solver import LPConfig
+    from repro_torch.engine import autotune, make_engine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    n = net.num_nodes
+    norm = net.normalize()
+    cfg = LPConfig(alg="dhlp2", alpha=0.5, sigma=1e-4, seed_mode="fixed", autotune=True)
+    seen = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, hit = autotune.ensure_tuned(
+        norm, alpha=cfg.alpha, hetero_scale=cfg.resolved_hetero_scale(norm.num_types), s=n,
+        repeats=2, cache_dir=AUTOTUNE_DIR, device=dev,
+        on_time=lambda kind, cand, t: seen.append((kind, cand, t)))
+    t_sweep = time.perf_counter() - t0
+    if hit:
+        fail("ensure_tuned hit a cache in the fresh directory")
+    log(f"  ensure_tuned cold at S = {n}: {t_sweep:.1f} s, key {autotune.host_fingerprint(dev)} / "
+        f"{autotune.shape_class(n, autotune.network_nnz(norm))}")
+    for kind, cand, t in seen:
+        log(f"    {kind} {cand}: {t * 1e3:.4f} ms a round")
+    if len([k for k, _, _ in seen if k == "layout"]) != len(autotune.LAYOUT_GRID) or \
+            [c for k, c, _ in seen if k == "slots_per_block"] != list(autotune.PANEL_GRID):
+        fail(f"the sweep timed {seen}")
+    log(f"  winner: {params.to_dict()}")
+    seen.clear()
+    again = autotune.ensure_tuned(norm, s=n, cache_dir=AUTOTUNE_DIR, device=dev,
+                                  on_time=lambda *a: seen.append(a))
+    if again != (params, True) or seen:
+        fail(f"the second ensure_tuned: {again}, timed {seen}")
+    log("  a second ensure_tuned: a hit, nothing timed")
+
+    results = {}
+    for name, kw in (("fused", {}), ("legacy", {"fused_superstep": False})):
+        eng = make_engine("kernel", cfg, device=dev, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(net)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pay = eng.prepare(net).payload
+        if pay.layout != (params.block_rows, params.width_mult) or \
+                pay.slots_per_block != params.slots_per_block:
+            fail(f"tuned {name} solve: payload layout {pay.layout}, slots_per_block "
+                 f"{pay.slots_per_block}, tuned {params}")
+        gap = float(np.max(np.abs(res.F - main_solve.F)))
+        log(f"  tuned kernel {name} solve: layout {pay.layout}, slots_per_block "
+            f"{pay.slots_per_block}, {res.outer_iters} rounds in {wall:.3f} s; max|ΔF| vs "
+            f"phase 4 {gap:.3e} (gate {AGREE_TOL})")
+        if res.outer_iters != main_solve.outer_iters or gap > AGREE_TOL or not res.converged:
+            fail(f"tuned {name} solve vs phase 4: {res.outer_iters} vs "
+                 f"{main_solve.outer_iters} rounds, max|ΔF| {gap}")
+        known = net.R[(0, 2)] > 0
+        compare_top10(top_main, top10_lists(np, topk_exclusive, extract_outputs, res.F, norm,
+                                            known), f"tuned kernel {name} vs phase 4")
+        results[name] = pay
+    counts = launch_counts()
+    b1_err, b3_err = tuned_kernel_gates(torch, np, n, results["fused"].plan,
+                                        results["legacy"].fused[0], params)
+    log(f"  B1 on every tuned-plan bucket at slots_per_block {list(autotune.PANEL_GRID)}: "
+        f"max|Δ| {b1_err:.3e}; B3 on every bucket of the tuned legacy layout: max|Δ| "
+        f"{b3_err:.3e} (rtol={F32_TOL['rtol']}, atol={F32_TOL['atol']})")
+    # the bench pass's sweep (kernel_variants/autotune_cache, phase 12) runs
+    # B1 on the 104-node drugnet's plan at S = 8: the same gate there
+    from repro_torch.data.drugnet import DrugNetSpec, make_drugnet
+
+    small = make_drugnet(DrugNetSpec(n_drug=48, n_disease=32, n_target=24, n_clusters=6))
+    small_plan = make_engine("kernel", LPConfig(alg="dhlp2", seed_mode="fixed", autotune=False),
+                             device=dev).prepare(small.network).payload.plan
+    small_err, _ = tuned_kernel_gates(torch, np, small.network.num_nodes, small_plan, None,
+                                      params, s=8)
+    b1_err = max(b1_err, small_err)
+    log(f"  B1 on every bucket of the bench sweep's drugnet plan (S = 8) at every "
+        f"slots_per_block: max|Δ| {small_err:.3e}")
+    log(f"  launches in phase 13 (a): {counts}")
+    return {"b1": counts["csr_round_residual"], "b3": counts["csr_round"],
+            "b1_err": b1_err, "b3_err": b3_err}
+
+
+def sharded_phase(torch, np, dev, net, main_solve, dhlp1_solve, top_main, b1_ms) -> None:
+    """Phase 13 (b): the sharded engine on a world of one NCCL rank: the
+    DHLP-2 all-sources solve held to phase 4 (equal rounds, ≤ 5e-3,
+    top-10), ``stale_sync=4`` within 1e-3 of it with at least its rounds,
+    ``compression="bf16"`` within 5e-3 of phase 4, DHLP-1 held to phase
+    7's ``sparse`` solve (equal rounds, ≤ 5e-3); ``python -m repro_torch
+    run --backend sharded --devices 1``; 64 queries served on ``sharded``
+    with the ``kernel`` serve engine's top-10; a ``remesh`` round-trip of
+    the solve's state onto a one-device mesh; wall per round beside B1's."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import extract_outputs, topk_exclusive
+    from repro_torch.core.solver import LPConfig
+    from repro_torch.engine import make_engine
+    from repro_torch.ft import remesh
+    from repro_torch.parallel.lp_sharded import ShardedHeteroLP
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.parallel.mesh import MeshSharding, destroy_owned_world, make_mesh
+    from repro_torch.serve import LPServeEngine, QuerySpec, ServeConfig
+
+    norm = net.normalize()
+    known = net.R[(0, 2)] > 0
+    cfg = LPConfig(alg="dhlp2", alpha=0.5, sigma=1e-4, seed_mode="fixed", autotune=False)
+    eng = make_engine("sharded", cfg, device=dev)
+    try:
+        op = eng.prepare(net)
+        mesh = eng.mesh()
+        log(f"  world: {dist.get_world_size()} rank, backend {dist.get_backend()}, mesh "
+            f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}; {op.payload.arrays[0].numel()} "
+            f"edges on this rank")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(net)
+        wall = time.perf_counter() - t0
+        gap = float(np.max(np.abs(res.F - main_solve.F)))
+        log(f"  sharded DHLP-2 all-sources: {res.outer_iters} rounds in {wall:.3f} s "
+            f"({wall / res.outer_iters * 1e3:.2f} ms a round, B1's fused round {b1_ms:.4f} ms: "
+            f"{wall / res.outer_iters * 1e3 / b1_ms:.1f}x); max|ΔF| vs phase 4 {gap:.3e}")
+        if res.outer_iters != main_solve.outer_iters or gap > AGREE_TOL or not res.converged:
+            fail(f"sharded vs phase 4: {res.outer_iters} vs {main_solve.outer_iters} rounds, "
+                 f"max|ΔF| {gap}")
+        compare_top10(top_main, top10_lists(np, topk_exclusive, extract_outputs, res.F, norm,
+                                            known), "sharded vs phase 4")
+        stale = ShardedHeteroLP(cfg, stale_sync=4, device=dev).run(norm, mesh)
+        gap_st = float(np.max(np.abs(stale.F - res.F)))
+        log(f"  stale_sync=4: {stale.outer_iters} rounds, max|ΔF| vs the synchronous solve "
+            f"{gap_st:.3e} (gate 1e-3)")
+        if gap_st > 1e-3 or stale.outer_iters < res.outer_iters:
+            fail(f"stale_sync=4: max|ΔF| {gap_st}, {stale.outer_iters} rounds")
+        bf = ShardedHeteroLP(cfg, compression="bf16", device=dev).run(norm, mesh)
+        gap_bf = float(np.max(np.abs(bf.F - main_solve.F)))
+        log(f"  compression bf16: {bf.outer_iters} rounds, max|ΔF| vs phase 4 {gap_bf:.3e} "
+            f"(gate {AGREE_TOL})")
+        if gap_bf > AGREE_TOL:
+            fail(f"bf16 compression: max|ΔF| {gap_bf}")
+        del stale, bf
+        cfg1 = LPConfig(alg="dhlp1", alpha=0.5, sigma=1e-4, autotune=False)
+        t0 = time.perf_counter()
+        r1 = make_engine("sharded", cfg1, device=dev).run(net)
+        wall1 = time.perf_counter() - t0
+        gap1 = float(np.max(np.abs(r1.F - dhlp1_solve.F)))
+        log(f"  sharded DHLP-1 all-sources: {r1.outer_iters} outer / {r1.inner_iters} inner "
+            f"rounds in {wall1:.3f} s (phase 7 sparse: {dhlp1_solve.outer_iters} / "
+            f"{dhlp1_solve.inner_iters}); max|ΔF| {gap1:.3e}")
+        if (r1.outer_iters, r1.inner_iters) != (dhlp1_solve.outer_iters, dhlp1_solve.inner_iters) \
+                or gap1 > AGREE_TOL:
+            fail(f"sharded DHLP-1 vs phase 7: rounds {(r1.outer_iters, r1.inner_iters)}, "
+                 f"max|ΔF| {gap1}")
+        del r1
+
+        run_dir = fresh_run_dir("sharded_drugnet")
+        proc, wall_cli = run_cli(["run", "--network", "drugnet", "--backend", "sharded",
+                                  "--devices", "1", "--device", CLI_DEVICE, "--top-k", "10",
+                                  "--run-id", "sharded_drugnet", "--results-root",
+                                  str(OUT_ROOT)])
+        if proc.returncode != 0:
+            fail(f"run --backend sharded --devices 1 exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        solve_doc = json.loads((run_dir / "solve.json").read_text())
+        if solve_doc.get("backend") != "sharded" or not solve_doc.get("converged"):
+            fail(f"run --backend sharded: solve.json {solve_doc}")
+        log(f"  python -m repro_torch run --network drugnet --backend sharded --devices 1: exit 0 "
+            f"in {wall_cli:.1f} s, {solve_doc['outer_iters']} rounds, top-10 of drug 0 "
+            f"{solve_doc['ranking']['candidates']}")
+
+        sv = dict(lp=LPConfig(alg="dhlp2", seed_mode="fixed", sigma=1e-4, autotune=False),
+                  max_batch=32)
+        served = {name: LPServeEngine(net, ServeConfig(engine=name, **sv), device=dev)
+                  for name in ("sharded", "kernel")}
+        t_q = {name: 0.0 for name in served}
+        for d in range(SHARDED_SERVE_QUERIES):
+            got = {}
+            for name, engine in served.items():
+                t0 = time.perf_counter()
+                got[name] = engine.query(QuerySpec(entity=d, target_type=2, top_k=10))
+                t_q[name] += time.perf_counter() - t0
+            if list(got["sharded"].candidates) != list(got["kernel"].candidates):
+                fail(f"drug {d}: sharded serve top-10 {list(got['sharded'].candidates)} vs "
+                     f"kernel {list(got['kernel'].candidates)}")
+        log(f"  {SHARDED_SERVE_QUERIES} queries one by one: sharded and kernel serve engines "
+            f"give equal top-10 lists; {t_q['sharded'] / SHARDED_SERVE_QUERIES * 1e3:.2f} vs "
+            f"{t_q['kernel'] / SHARDED_SERVE_QUERIES * 1e3:.2f} ms a query")
+
+        state = torch.as_tensor(res.F, dtype=torch.float32, device=dev)
+        meshes = []
+
+        def to_mesh(k):
+            meshes.append(make_mesh((k,), ("data",), device=dev))
+            return {"F": MeshSharding(meshes[-1], (Shard(0),))}
+
+        cm = CheckpointManager(str(fresh_run_dir("sharded_remesh")))
+        out, plan = remesh(cm, {"F": state}, healthy_devices=1, current_devices=2,
+                           make_shardings=to_mesh, step=res.outer_iters)
+        back = out["F"].full_tensor()
+        if plan["to"] != 1 or meshes[0].size() != 1 or not torch.equal(back, state):
+            fail(f"remesh onto a 1-device mesh: plan {plan}, equal {torch.equal(back, state)}")
+        log(f"  remesh {plan}: the solve's state restored as a DTensor on "
+            f"{out['F'].device_mesh}, bit-identical")
+    finally:
+        destroy_owned_world()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1622,7 +1915,18 @@ def main() -> int:
     from repro_torch.models.gnn import GCN, gcn_adjacency_live
     from repro_torch.models.recsys import WideDeep, make_retrieval_scorer, make_serve
 
+    import shutil
+
+    from repro_torch.engine import autotune as autotune_mod
+
     t_script = time.perf_counter()
+    # no phase reads an autotune cache left by an earlier run: the CLI
+    # phases' (under the checkout) and the in-process phases' are emptied
+    shutil.rmtree(ROOT / "results" / "autotune", ignore_errors=True)
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    AUTOTUNE_DIR.mkdir(parents=True)
+    autotune_mod.DEFAULT_CACHE_DIR = AUTOTUNE_DIR
+    autotune_mod.clear_memo()
     # ------------------------------------------------------------ 1. device
     log("== phase 1: device")
     dev = torch.device("cuda:0")
@@ -2066,6 +2370,7 @@ def main() -> int:
         fail(f"DHLP-1 all-sources sparse vs dense: max|ΔF| {gap}, outer_iters "
              f"{alls['sparse fused'].outer_iters} vs {alls['dense'].outer_iters}")
     log(f"  launches on the DHLP-1 path (torch-op engines): {launch_counts()}")
+    dhlp1_main = alls["sparse fused"]  # phase 13 holds the sharded DHLP-1 solve to it
     del alls
     dhlp1_engine = make_engine("sparse", cfg1, device=dev)
     dhlp1_engine.prepare(net)
@@ -2404,18 +2709,27 @@ def main() -> int:
     # ---------------------------------------------- 11. the entry point
     log("== phase 11: the normal entry point (python -m repro_torch run, Session, serve)")
     entry = entry_point_phase(torch, np, dev, bundle, res_k, b1_ms, b3_ms)
-    del res_k
 
     # --------------------------------------------- 12. the bench harness
     t0 = time.perf_counter()
     bench_phase()
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------ 13. the kernel list
-    log("== phase 13: kernels")
-    counts["csr_round_residual"] += entry["serve_b1"]
-    b1_err = max(b1_err, entry["b1_err"])
-    counts["csr_round"] = legacy_counts["csr_round"] + entry["b3"]
+    # -------------------------- 13. the autotune sweep and the sharded engine
+    t0 = time.perf_counter()
+    log("== phase 13 (a): the autotune sweep at full width, the tuned kernel solves")
+    tuned = autotune_phase(torch, np, dev, net, res_k, top_k)
+    log("== phase 13 (b): the sharded engine on a world of one NCCL rank")
+    sharded_phase(torch, np, dev, net, res_k, dhlp1_main, top_k, b1_ms)
+    del res_k, dhlp1_main
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ 14. the kernel list
+    log("== phase 14: kernels")
+    counts["csr_round_residual"] += entry["serve_b1"] + tuned["b1"]
+    b1_err = max(b1_err, entry["b1_err"], tuned["b1_err"])
+    b3_err = max(b3_err, tuned["b3_err"])
+    counts["csr_round"] = legacy_counts["csr_round"] + entry["b3"] + tuned["b3"]
     counts["csr_aggregate"] = gcn_counts["csr_aggregate"]
     counts["embedding_bag"] = wd_counts["embedding_bag"]
     counts["flash_attention"] = serving["launches"]
@@ -2505,7 +2819,7 @@ def main() -> int:
     log(f"  total {time.perf_counter() - t_script:.1f} s")
     print(smi_name_and_limit(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # ----------------------------------------------------- 14. the result
+    # ----------------------------------------------------- 15. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

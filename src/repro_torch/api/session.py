@@ -18,9 +18,11 @@ engine's single-entry operator cache would force serve to re-prepare.
 
 Every engine of a session runs on its ``device`` (``None`` = ``cuda:0``,
 which raises without CUDA; the CPU only with ``device="cpu"``), and so
-does the ``bench`` pass.  The stages whose modules are not ported yet
-raise ``NotImplementedError`` naming their item of ``ROADMAP.md``'s
-queue A: the ``sharded`` backend (A.8), ``train`` and ``dryrun`` (A.9).
+does the ``bench`` pass.  The ``sharded`` backend lays its mesh over the
+world that exists (every rank under ``torchrun``) or starts a world of one
+rank; only rank 0 writes run artifacts.  The stages whose modules are not
+ported yet raise ``NotImplementedError`` naming their item of
+``ROADMAP.md``'s queue A: ``train`` and ``dryrun`` (A.9).
 """
 
 from __future__ import annotations
@@ -188,12 +190,16 @@ class Session:
             requested = solve.backend
             if requested is None and self.spec.serve is not None:
                 requested = self.spec.serve.engine
-            if requested == "sharded":
-                raise not_ported("the sharded backend", "A.8")
             self._backend = resolve_backend(
                 requested, num_nodes=self.network.num_nodes
             )
         return self._backend
+
+    def _engine_kwargs(self) -> Dict[str, Any]:
+        solve = self.spec.resolved_solve()
+        if self.backend == "sharded" and solve.devices:
+            return {"devices": solve.devices}
+        return {}
 
     @property
     def engine(self):
@@ -202,7 +208,8 @@ class Session:
             from repro_torch.engine import make_engine
 
             self._engine = make_engine(
-                self.backend, self.lp_config(), device=self.device
+                self.backend, self.lp_config(), device=self.device,
+                **self._engine_kwargs(),
             )
         return self._engine
 
@@ -213,7 +220,8 @@ class Session:
             from repro_torch.engine import make_engine
 
             self._eval_engine = make_engine(
-                self.backend, self.lp_config(), device=self.device
+                self.backend, self.lp_config(), device=self.device,
+                **self._engine_kwargs(),
             )
         return self._eval_engine
 
@@ -639,9 +647,6 @@ class Session:
         if unknown:
             raise SpecError(f"unknown run section(s) {unknown}")
         # refuse what is not ported before anything runs or is written
-        serve_engine = self.spec.serve.engine if self.spec.serve else None
-        if "sharded" in (self.spec.resolved_solve().backend, serve_engine):
-            raise not_ported("the sharded backend", "A.8")
         for name in names:
             if name in _NOT_PORTED_STAGES:
                 raise not_ported(f"the {name} section", _NOT_PORTED_STAGES[name])
@@ -649,6 +654,11 @@ class Session:
             from repro_torch.bench.driver import refuse_unported
 
             refuse_unported(self.spec.bench.suites)
+        serve_engine = self.spec.serve.engine if self.spec.serve else None
+        if "sharded" in (self.spec.resolved_solve().backend, serve_engine):
+            from repro_torch.parallel.mesh import is_rank_zero
+
+            write = write and is_rank_zero()  # one set of artifacts per world
         if write:
             os.makedirs(self.run_dir, exist_ok=True)
             _write_json(os.path.join(self.run_dir, "spec.json"), self.spec.to_dict())

@@ -7,8 +7,8 @@ report writing, same failure semantics (DESIGN.md §10).
 
 The suites are modules of this package (``repro_torch.bench.suites``
 plus the two matrix suites); importing them registers them.  The
-reference's ``fig34_parallelism``, ``lp_on_graph`` and ``roofline``
-suites need modules not ported yet: a pass over every suite prints one
+reference's ``lp_on_graph`` and ``roofline`` suites need modules not
+ported yet: a pass over every suite prints one
 ``skipped <suite>: not ported (ROADMAP A.n)`` line for each, and naming
 one in ``only`` raises the port's ``NotImplementedError``.
 """
@@ -21,7 +21,6 @@ from typing import Callable, List, Optional
 
 #: reference suites this package lacks -> the ROADMAP.md queue item they wait for
 NOT_PORTED_SUITES = {
-    "fig34_parallelism": "A.8",  # the sharded engine
     "lp_on_graph": "A.9.4",  # its GCN cell trains
     "roofline": "A.9.5",  # the dry-run census
 }
@@ -42,6 +41,7 @@ def import_suite_modules() -> None:
     """Import every suite module (registration is an import-time side
     effect) plus the two matrix suites."""
     import repro_torch.bench.matrix as bench_matrix
+    import repro_torch.bench.suites.fig34_parallelism  # noqa: F401
     import repro_torch.bench.suites.kernel_variants  # noqa: F401
     import repro_torch.bench.suites.kernels  # noqa: F401
     import repro_torch.bench.suites.serve  # noqa: F401

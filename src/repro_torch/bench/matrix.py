@@ -1,19 +1,20 @@
-"""LP-core backend matrix: one table where kernel wins show.
+"""LP-core backend matrix: one table where kernel and sharding wins show.
 
 Runs the same propagation problem across every backend the engine
 registry knows (``repro_torch.engine``) — dense torch matmul,
-blocked-CSR sparse in torch ops, and the ``kernel`` engine, whose fused
-rounds launch the ``csr_round_residual`` CUDA kernel (B1) on a card — and
-emits one record per cell with identical timing discipline, plus a
-fixed-point agreement check against the dense engine (strict-gated: a
-backend that silently diverges fails the gate even if it got faster).
-The sweep iterates the registry, so registering a new backend grows the
-table without touching this file.  The registry has no ``sharded``
-engine yet (``ROADMAP.md`` queue A.8), so the reference's
-``sharded{1,2,4}`` columns are absent and the pass says so.
+blocked-CSR sparse in torch ops, the ``kernel`` engine, whose fused
+rounds launch the ``csr_round_residual`` CUDA kernel (B1) on a card, and
+the ``sharded`` engine at 1/2/4 ranks (8 on the full pass) — and emits
+one record per cell with identical timing discipline, plus a fixed-point
+agreement check against the dense engine (strict-gated: a backend that
+silently diverges fails the gate even if it got faster).  The sweep
+iterates the registry, so registering a new backend grows the table
+without touching this file.
 
-Cells whose (alg, momentum) the backend does not support are skipped
-LOUDLY (a ``skipped`` line, never a silent hole in the table).
+A ``sharded{k}`` column runs when the world has k ranks (this process
+alone is a world of one); other columns, and cells whose (alg, momentum)
+the backend does not support, are skipped LOUDLY (a ``skipped`` line,
+never a silent hole in the table).
 
 Momentum cells (heavy-ball, beyond-paper) run on every
 momentum-capable backend and share the momentum-off dense reference:
@@ -42,22 +43,32 @@ class BackendSpec:
     """One column of the matrix; ``kind`` is an engine-registry key."""
 
     name: str
-    kind: str  # dense | sparse | kernel (| sharded, once ported)
+    kind: str  # dense | sparse | kernel | sharded
     devices: int = 1
 
     def available(self, device_count: int) -> bool:
         if self.kind == "sharded":
-            return device_count >= self.devices
+            return device_count == self.devices
         return True
 
 
-def lp_backend_specs() -> Tuple[BackendSpec, ...]:
-    """Iterate the engine registry into matrix columns, one per key (the
-    reference also fans ``sharded`` out per device count, 8 on its full
-    pass; this registry has no sharded engine yet)."""
+def lp_backend_specs(*, full: bool = False) -> Tuple[BackendSpec, ...]:
+    """Iterate the engine registry into matrix columns.
+
+    ``sharded`` fans out into per-rank-count columns (1/2/4, plus 8 on the
+    full pass); every other registered backend is one column under its
+    registry key.
+    """
     from repro_torch.engine import available_backends
 
-    return tuple(BackendSpec(name, name) for name in available_backends())
+    specs: List[BackendSpec] = []
+    for name in available_backends():
+        if name == "sharded":
+            for k in (1, 2, 4, 8) if full else (1, 2, 4):
+                specs.append(BackendSpec(f"sharded{k}", "sharded", devices=k))
+        else:
+            specs.append(BackendSpec(name, name))
+    return tuple(specs)
 
 
 def expand_matrix(
@@ -69,12 +80,12 @@ def expand_matrix(
     """Cross backends × params, splitting off unavailable backends.
 
     Returns ``(cells, skipped)`` — callers must surface ``skipped``.
-    ``device_count`` defaults to the cards torch sees.
+    ``device_count`` defaults to the ranks of the world (1 without one).
     """
     if device_count is None:
-        import torch
+        from repro_torch.parallel.mesh import world_size
 
-        device_count = torch.cuda.device_count()
+        device_count = world_size()
     runnable = [b for b in backends if b.available(device_count)]
     skipped = [b for b in backends if not b.available(device_count)]
     cells = [(b, dict(p)) for b in runnable for p in param_sets]
@@ -85,7 +96,8 @@ def _make_solve(spec: BackendSpec, cfg, norm, Y, device) -> Callable[[], object]
     """Bind a no-arg solve closure for one matrix cell."""
     from repro_torch.engine import make_engine
 
-    engine = make_engine(spec.kind, cfg, device=device)
+    kw = {"devices": spec.devices} if spec.kind == "sharded" else {}
+    engine = make_engine(spec.kind, cfg, device=device, **kw)
     return lambda: engine.run(norm, seeds=Y)
 
 
@@ -129,15 +141,13 @@ def lp_matrix_records(fast: bool = True, device=None) -> List[BenchRecord]:
     param_sets: List[Dict[str, object]] = [{"alg": a, "momentum": 0.0} for a in algs]
     if "dhlp2" in algs:
         param_sets.append({"alg": "dhlp2", "momentum": MOMENTUM})
-    # no registered backend needs more than one card, so none is skipped
-    # for want of devices; the reference's sharded columns wait for A.8
-    cells, _ = expand_matrix(lp_backend_specs(), param_sets)
+    cells, skipped = expand_matrix(lp_backend_specs(full=not fast), param_sets)
     records: List[BenchRecord] = []
-    print(
-        "lp_matrix: skipped backends sharded1, sharded2, sharded4: "
-        "not ported (ROADMAP A.8)",
-        flush=True,
-    )
+    for b in skipped:
+        print(
+            f"lp_matrix: skipped backend {b.name} (needs {b.devices} devices)",
+            flush=True,
+        )
 
     # dense reference fixed points, one per alg (fixed-seed mode: every
     # backend AND the momentum cells must land on the same answer)

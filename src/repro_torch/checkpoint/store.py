@@ -22,7 +22,11 @@ Python scalars); ``None`` is an empty subtree.  The manifest's treedef is
 written in the reference's notation (``PyTreeDef({'F': *, ...})``), so
 either package restores the other's steps.  Arrays are saved whole; on
 restore, tensor leaves of the template go to ``device`` (default: the
-template leaf's own), numpy leaves stay numpy.
+template leaf's own), numpy leaves stay numpy, unless ``shardings`` (a
+tree of :class:`repro_torch.parallel.mesh.MeshSharding` of the same
+structure) places every leaf on a mesh as a ``DTensor``: each rank reads
+the whole array and keeps its shard, so a step written on one device
+restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -85,8 +89,11 @@ def _unflatten(like: PyTree, leaves: List[Any]) -> PyTree:
 
 
 def _host(x) -> np.ndarray:
-    """A host array for one leaf; a tensor is copied off its device."""
+    """A host array for one leaf; a tensor is copied off its device (a
+    ``DTensor`` gathered whole first: every rank of its mesh calls this)."""
     if isinstance(x, torch.Tensor):
+        if hasattr(x, "full_tensor"):
+            x = x.full_tensor()
         return x.detach().cpu().numpy().copy()
     return np.asarray(x)
 
@@ -232,6 +239,7 @@ class CheckpointManager:
         device: Optional[Any] = None,
         *,
         cast: bool = False,
+        shardings: Optional[PyTree] = None,
     ) -> PyTree:
         """Restore into the structure of ``like`` (treedef, shape and
         dtype all validated against the manifest).
@@ -241,6 +249,9 @@ class CheckpointManager:
         A dtype mismatch is an error — a checkpoint is a bit-exact record,
         not a conversion source; pass ``cast=True`` to opt into an
         explicit ``astype`` (e.g. restoring bf16 storage into f32).
+        ``shardings`` (same structure as ``like``, ``MeshSharding``
+        leaves) restores every leaf as a ``DTensor`` on its mesh instead;
+        every rank of the mesh must call it.
         """
         d = self._step_dir(step)
         manifest = self.manifest(step)
@@ -256,8 +267,16 @@ class CheckpointManager:
                 f"checkpoint treedef {saved_treedef} does not match "
                 f"target structure {treedef}"
             )
+        placed = [None] * len(leaves_like)
+        if shardings is not None:
+            placed, _ = _flatten(shardings)
+            if len(placed) != len(leaves_like):
+                raise ValueError(
+                    f"shardings has {len(placed)} leaves, target structure has "
+                    f"{len(leaves_like)}"
+                )
         out = []
-        for rec, ref in zip(manifest["leaves"], leaves_like):
+        for rec, ref, sharding in zip(manifest["leaves"], leaves_like, placed):
             arr = np.load(os.path.join(d, rec["file"]))
             if tuple(arr.shape) != tuple(np.shape(ref)):
                 raise ValueError(
@@ -271,7 +290,11 @@ class CheckpointManager:
                         "(pass cast=True to convert explicitly)"
                     )
                 arr = arr.astype(ref_dtype)
-            if isinstance(ref, torch.Tensor):
+            if sharding is not None:
+                from repro_torch.parallel.mesh import distribute
+
+                arr = distribute(torch.from_numpy(arr), sharding)
+            elif isinstance(ref, torch.Tensor):
                 arr = torch.from_numpy(arr).to(
                     ref.device if device is None else device
                 )
@@ -284,10 +307,13 @@ class CheckpointManager:
         device: Optional[Any] = None,
         *,
         cast: bool = False,
+        shardings: Optional[PyTree] = None,
     ) -> Tuple[Optional[int], Optional[PyTree]]:
         for step in reversed(self.steps()):
             try:
-                return step, self.restore(step, like, device, cast=cast)
+                return step, self.restore(
+                    step, like, device, cast=cast, shardings=shardings
+                )
             except Exception:  # noqa: BLE001 — corrupt ckpt: try older
                 continue
         return None, None

@@ -7,7 +7,9 @@
 Registered backends: ``dense`` (torch matmul; the ``lp_round`` kernel
 with ``LPConfig(use_kernel=True)``), ``sparse`` (blocked-CSR gather in
 torch ops), ``kernel`` (the ``csr_round_residual`` kernel per width
-bucket), and the ``auto`` selection policy (:func:`select_backend`).
+bucket), ``sharded`` (edge × seed shards over a ``torch.distributed``
+mesh, one all-reduce per superstep), and the ``auto`` selection policy
+(:func:`select_backend`), which never picks ``sharded``.
 """
 
 from repro_torch.engine.base import (
@@ -26,6 +28,7 @@ from repro_torch.engine.base import (
 
 # importing the submodules registers the built-in backends
 from repro_torch.engine import dense as _dense  # noqa: E402,F401
+from repro_torch.engine import sharded as _sharded  # noqa: E402,F401
 from repro_torch.engine import sparse as _sparse  # noqa: E402,F401
 
 __all__ = [

@@ -15,9 +15,10 @@ behind ``fused_superstep=False`` as the A/B baseline; on ``kernel`` its
 rounds are the ``csr_round`` CUDA kernel.  DHLP-1 runs on ``sparse``
 (both loops); ``kernel`` is DHLP-2 only, as in the reference.
 
-Not ported yet (ROADMAP queue A.7): the GPU-keyed autotune cache and
-sweep — the layout always resolves to
-:data:`~repro_torch.engine.autotune.DEFAULT_PARAMS`.
+The layout (``block_rows``, ``width_mult``) and the round kernels'
+``slots_per_block`` resolve as explicit kwargs > the device-keyed
+autotune cache (:mod:`repro_torch.engine.autotune`, consulted only with
+``LPConfig.autotune``) > :data:`~repro_torch.engine.autotune.DEFAULT_PARAMS`.
 ``storage_dtype="bf16"`` stores the fused plans' operator weights and
 the per-round gather panel in bfloat16 with f32 state and accumulation;
 the legacy loops ignore it and run in f32, as the reference's do.
@@ -92,7 +93,7 @@ def _bucket_agg(buckets, inv_perm, F):
     return torch.cat(parts, dim=0)[inv_perm]
 
 
-def _bucket_round(buckets, inv_perm, F, base, *, beta2: float):
+def _bucket_round(buckets, inv_perm, F, base, *, beta2: float, slots_per_block=None):
     """Fused round ``β²·base + A @ F`` per bucket through ``csr_round_op``.
 
     On CUDA tensors every bucket is one ``csr_round`` kernel launch (never
@@ -104,7 +105,14 @@ def _bucket_round(buckets, inv_perm, F, base, *, beta2: float):
     for rows, nbr, wgt, live in buckets:
         m = nbr.shape[0]
         csr_round_op(
-            nbr, wgt, F, base[rows], c=beta2, out=out[off : off + m], live=live
+            nbr,
+            wgt,
+            F,
+            base[rows],
+            c=beta2,
+            out=out[off : off + m],
+            live=live,
+            slots_per_block=slots_per_block,
         )
         off += m
     return out[inv_perm]
@@ -122,6 +130,7 @@ def _dhlp2_csr_loop(
     seed_mode: str,
     momentum: float,
     use_kernel: bool,
+    slots_per_block=None,
 ):
     """Pre-fusion DHLP-2 on blocked-CSR buckets (bench A/B baseline)."""
     F = F_prev = F0
@@ -132,7 +141,9 @@ def _dhlp2_csr_loop(
     while it < max_iter and bool(active.any()):
         base = Y if seed_mode == "fixed" else F
         if use_kernel:
-            Fn = _bucket_round(buckets, inv_perm, F, base, beta2=beta2)
+            Fn = _bucket_round(
+                buckets, inv_perm, F, base, beta2=beta2, slots_per_block=slots_per_block
+            )
         else:
             Fn = beta2 * base + _bucket_agg(buckets, inv_perm, F)
         if momentum:
@@ -274,7 +285,7 @@ def _device_plan(bcsr, *, storage: str, device, weight_scale: float = 1.0):
     )
 
 
-def _plan_round(buckets, F, base, *, c, use_kernel, storage):
+def _plan_round(buckets, F, base, *, c, use_kernel, storage, slots_per_block=None):
     """One fused superstep over a permuted-space plan.
 
     ``F``/``base`` live in permuted space (f32); returns ``(Fn, delta)``
@@ -307,6 +318,7 @@ def _plan_round(buckets, F, base, *, c, use_kernel, storage):
             c=c,
             out=Fn[off : off + m],
             live=live,
+            slots_per_block=slots_per_block,
         )
         dparts.append(dl)
         off += m
@@ -327,6 +339,7 @@ def _dhlp2_plan_loop(
     momentum: float,
     use_kernel: bool,
     storage: str,
+    slots_per_block=None,
 ):
     """Fused-superstep DHLP-2: state stays in permuted space end to end.
 
@@ -341,7 +354,13 @@ def _dhlp2_plan_loop(
     while it < max_iter and bool(active.any()):
         base = Yp if seed_mode == "fixed" else F
         Fn, delta = _plan_round(
-            buckets, F, base, c=beta2, use_kernel=use_kernel, storage=storage
+            buckets,
+            F,
+            base,
+            c=beta2,
+            use_kernel=use_kernel,
+            storage=storage,
+            slots_per_block=slots_per_block,
         )
         if momentum:
             # the kernel residual is pre-momentum; fold the heavy-ball
@@ -437,11 +456,13 @@ class _CSRPayload:
     (only built when ``fused_superstep=False``).  ``plan`` and ``fused``
     are also built lazily for DHLP-1 when ``round`` needs the fused
     DHLP-2 operator.  ``layout`` is the resolved ``(block_rows,
-    width_mult)``.
+    width_mult)``, ``slots_per_block`` the round kernels' resolved block
+    sizing.
     """
 
-    def __init__(self, layout):
+    def __init__(self, layout, slots_per_block):
         self.layout = layout
+        self.slots_per_block = slots_per_block
         self.fused = None  # (buckets, inv_perm)
         self.split = None  # ((het_buckets, het_inv), (hom_buckets, hom_inv))
         self.plan = None  # (buckets, perm, rank)
@@ -463,25 +484,42 @@ class SparseCSREngine(LPEngine):
         device=None,
         block_rows=None,
         width_mult=None,
+        slots_per_block=None,
         fused_superstep=True,
     ):
         super().__init__(config if config is not None else LPConfig(), device=device)
-        self.block_rows = block_rows  # None = default layout
+        self.block_rows = block_rows  # None = autotuned (or default)
         self.width_mult = width_mult
+        self.slots_per_block = slots_per_block
         self.fused_superstep = fused_superstep
 
-    def _resolve_params(self) -> autotune.TunedParams:
-        """Layout: explicit kwargs > defaults (no GPU-keyed cache yet)."""
-        base = autotune.DEFAULT_PARAMS
+    def _resolve_params(self, norm: NormalizedNetwork) -> autotune.TunedParams:
+        """Layout + block sizing: explicit kwargs > cache > defaults.
+
+        The cache (keyed on this engine's device) is consulted only with
+        ``config.autotune`` and when some parameter is left unset."""
+        tuned = None
+        if self.config.autotune and None in (
+            self.block_rows,
+            self.width_mult,
+            self.slots_per_block,
+        ):
+            tuned = autotune.lookup(
+                norm.num_nodes, autotune.network_nnz(norm), device=self.device
+            )
+        base = tuned if tuned is not None else autotune.DEFAULT_PARAMS
         return autotune.TunedParams(
             block_rows=self.block_rows or base.block_rows,
             width_mult=self.width_mult or base.width_mult,
+            slots_per_block=self.slots_per_block or base.slots_per_block,
         )
 
     def _build(self, norm: NormalizedNetwork) -> Operator:
         cfg = self.config
-        params = self._resolve_params()
-        pay = _CSRPayload((params.block_rows, params.width_mult))
+        params = self._resolve_params(norm)
+        pay = _CSRPayload(
+            (params.block_rows, params.width_mult), params.slots_per_block
+        )
         op = Operator(
             backend=self.name, norm=norm, num_nodes=norm.num_nodes, payload=pay
         )
@@ -610,7 +648,7 @@ class SparseCSREngine(LPEngine):
         if cfg.alg == "dhlp2":
             kw = dict(
                 common, beta2=beta * beta, momentum=cfg.momentum,
-                use_kernel=self.use_kernel,
+                use_kernel=self.use_kernel, slots_per_block=pay.slots_per_block,
             )
             if self.fused_superstep:
                 F, it, ci = _dhlp2_plan_loop(
@@ -639,12 +677,16 @@ class SparseCSREngine(LPEngine):
                 c=beta2,
                 use_kernel=self.use_kernel,
                 storage=self.config.storage_dtype,
+                slots_per_block=op.payload.slots_per_block,
             )
             Fn = Fn[rank]
         else:
             buckets, inv = self._fused_buckets(op)
             if self.use_kernel:
-                Fn = _bucket_round(buckets, inv, Fd, Yd, beta2=beta2)
+                Fn = _bucket_round(
+                    buckets, inv, Fd, Yd, beta2=beta2,
+                    slots_per_block=op.payload.slots_per_block,
+                )
             else:
                 Fn = beta2 * Yd + _bucket_agg(buckets, inv, Fd)
             delta = (Fn - Fd).abs().amax(dim=0)

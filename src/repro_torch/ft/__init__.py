@@ -1,9 +1,9 @@
-"""Fault tolerance: the step guard, straggler watch, fault injection and
-the checkpointed solve (DESIGN.md §16).  The elastic re-mesh
-(``ft/elastic.py`` and ``ElasticController`` in the reference) needs
-sharded engines and comes with them (``ROADMAP.md`` queue A.8)."""
+"""Fault tolerance: the step guard, straggler watch, fault injection, the
+elastic re-mesh and the checkpointed solve (DESIGN.md §16)."""
 
+from repro_torch.ft.elastic import remesh
 from repro_torch.ft.runtime import (
+    ElasticController,
     FailureInjector,
     StepGuard,
     StragglerWatch,
@@ -12,12 +12,14 @@ from repro_torch.ft.runtime import (
 )
 
 __all__ = [
+    "ElasticController",
     "FailureInjector",
     "StepGuard",
     "StragglerWatch",
     "TransientWorkerError",
     "checkpointed_solve",
     "is_retryable",
+    "remesh",
     "supports_checkpointed",
 ]
 

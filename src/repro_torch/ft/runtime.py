@@ -10,8 +10,12 @@ driver-side mechanisms here are platform-agnostic:
   checkpoint and replays.
 * ``StragglerWatch`` — EWMA of step times; flags steps slower than
   ``threshold ×`` the running mean.  In the LP engine the mitigation is
-  bounded staleness (``ShardedHeteroLP(stale_sync=k)``, queue item A.8
-  of ``ROADMAP.md``, with the elastic re-mesh controller).
+  bounded staleness (``ShardedHeteroLP(stale_sync=k)``); in a training
+  loop it feeds the elastic controller below.
+* ``ElasticController`` — decides on re-meshing when the healthy device
+  count changes; checkpoints are saved unsharded, so a restore onto the
+  new mesh is ``CheckpointManager.restore(..., shardings=new)``
+  (:func:`repro_torch.ft.elastic.remesh` runs it end to end).
 * ``FailureInjector`` — deterministic fault injection for tests: raises a
   transient error on chosen steps so CI can exercise the recovery path.
 """
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 PyTree = Any
 
@@ -146,3 +150,32 @@ class StepGuard:
                     attempt = 0  # the replay gets a fresh retry budget
                     continue
                 raise last
+
+
+@dataclasses.dataclass
+class ElasticController:
+    """Re-mesh policy: checkpoint → rebuild the mesh on the healthy devices
+    → restore with new shardings.  Device loss detection is platform-level;
+    here is the decision and its bookkeeping."""
+
+    min_devices: int = 1
+    history: List[Dict] = dataclasses.field(default_factory=list)
+
+    def plan(self, healthy_devices: int, current_devices: int) -> Optional[Dict]:
+        if healthy_devices == current_devices:
+            return None
+        if healthy_devices < self.min_devices:
+            raise RuntimeError(
+                f"{healthy_devices} devices < minimum {self.min_devices}"
+            )
+        # shrink to the largest power-of-two ≤ healthy (keeps meshes tidy)
+        target = 1
+        while target * 2 <= healthy_devices:
+            target *= 2
+        plan = {
+            "from": current_devices,
+            "to": target,
+            "action": "checkpoint-restore-reshard",
+        }
+        self.history.append(plan)
+        return plan

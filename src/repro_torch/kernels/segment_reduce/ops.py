@@ -44,7 +44,8 @@ AGGREGATE_LAUNCHES = LaunchCounter("csr_aggregate")
 # and wide ones (up to thousands of slots) one row per block.  The round
 # kernels give each row of a block to a warp (up to 16 warps a block for
 # B1, 8 for B3); on the LP path 1024 and 2048 time alike and 4096 is
-# slower (tools/csr_round_variants.py).
+# slower (tools/csr_round_variants.py).  The engines may pass another
+# ``slots_per_block`` (the autotune sweep's), ``None`` meaning this one.
 _SLOTS_PER_BLOCK = 2048
 _MAX_ROWS_PER_BLOCK = 64
 _STORAGE = (torch.float32, torch.bfloat16)
@@ -73,13 +74,21 @@ def live_rows(wgt: np.ndarray, device) -> LiveRows:
     )
 
 
-def rows_per_block(width: int) -> int:
-    """Rows one CUDA block covers for a bucket of this many (live) slots a row."""
-    return max(1, min(_MAX_ROWS_PER_BLOCK, _SLOTS_PER_BLOCK // max(1, width)))
+def rows_per_block(width: int, slots_per_block: Optional[int] = None) -> int:
+    """Rows one CUDA block covers for a bucket of this many (live) slots a
+    row, aiming at ``slots_per_block`` slots a block (default
+    ``_SLOTS_PER_BLOCK``)."""
+    spb = _SLOTS_PER_BLOCK if slots_per_block is None else int(slots_per_block)
+    if spb < 1:
+        raise ValueError(f"slots_per_block must be >= 1, got {spb}")
+    return max(1, min(_MAX_ROWS_PER_BLOCK, spb // max(1, width)))
 
 
-def _bucket_rows_per_block(m: int, d: int, live: Optional[LiveRows]) -> int:
-    return rows_per_block(d if live is None else cdiv(live.slots, max(1, m)))
+def _bucket_rows_per_block(
+    m: int, d: int, live: Optional[LiveRows], slots_per_block: Optional[int] = None
+) -> int:
+    width = d if live is None else cdiv(live.slots, max(1, m))
+    return rows_per_block(width, slots_per_block)
 
 
 def vector_width(F: torch.Tensor) -> int:
@@ -206,6 +215,7 @@ def csr_round_op(
     c: float,
     out: Optional[torch.Tensor] = None,
     live: Optional[LiveRows] = None,
+    slots_per_block: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused ``c·base + A_bucket @ F`` round for one bucket, in ``F.dtype``.
 
@@ -214,7 +224,9 @@ def csr_round_op(
     bucket-order state).  ``live``, when given, lets the kernel stop each
     row after its live slots (plus one pad, so that a NaN in the F row the
     pads name still reaches the rows that have pads); the plain version
-    sums every slot and gives the same function.
+    sums every slot and gives the same function.  ``slots_per_block``
+    sizes the kernel's blocks (:func:`rows_per_block`); the plain version
+    has none.
     """
     t0 = kernel_clock(F.device)
     if on_cpu(nbr, wgt, F, base):
@@ -242,7 +254,7 @@ def csr_round_op(
         m,
         d,
         s,
-        _bucket_rows_per_block(m, d, live),
+        _bucket_rows_per_block(m, d, live, slots_per_block),
         vector_width(F),
         float(c),
         int(F.dtype == torch.bfloat16),
@@ -264,13 +276,15 @@ def csr_round_residual_op(
     c: float,
     out: Optional[torch.Tensor] = None,
     live: Optional[LiveRows] = None,
+    slots_per_block: Optional[int] = None,
 ) -> tuple:
     """Fused superstep for one bucket: round plus max-|out − prev| partial.
 
     Returns ``(out, delta)``; ``delta`` has one max-partial row per row
     block (``(cdiv(M, rows_per_block(W)), S)`` from the kernel, with ``W``
     the live slots per row rounded up, or ``D`` without ``live``; ``(1, S)``
-    from the plain version) — callers reduce with ``amax(dim=0)`` after
+    from the plain version; ``slots_per_block`` passed on to
+    :func:`rows_per_block`) — callers reduce with ``amax(dim=0)`` after
     concatenating buckets.  ``out``, when given, is an ``(M, S)`` f32
     buffer the result is written into (the engine passes its slice of the
     next state, so no per-round concatenation is needed).  ``live`` as for
@@ -291,7 +305,7 @@ def csr_round_residual_op(
     else:
         check_cuda_operand("out", out, device=dev, dtypes=(torch.float32,), shape=(m, s))
     live_ptr = _check_live(live, m, dev)
-    rpb = _bucket_rows_per_block(m, d, live)
+    rpb = _bucket_rows_per_block(m, d, live, slots_per_block)
     delta = torch.empty((cdiv(m, rpb), s), dtype=torch.float32, device=dev)
     if m == 0 or s == 0:
         return out, delta

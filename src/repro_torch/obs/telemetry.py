@@ -202,6 +202,10 @@ class Telemetry:
         if level not in LEVELS:
             raise ValueError(f"obs level must be one of {LEVELS}, got {level!r}")
         self.level = level
+        # the level never changes: its tests are plain attributes, read on
+        # every recording call of the serve tier's hot path
+        self._on = level != "off"
+        self._trace = level in ("trace", "profile")
         self.run_id = run_id
         self.clock = time.monotonic if clock is None else clock
         #: write OpenMetrics text snapshots (``metrics.prom``) on flush
@@ -215,6 +219,11 @@ class Telemetry:
         self._local = threading.local()
         self._ambient: Optional[int] = None
         self.metrics = MetricsRegistry(clock=self.clock)
+        # name -> instrument memos over the registry (which stays the one
+        # owner and type check): a hot-path call is one dict probe
+        self._counters: Dict[str, Any] = {}
+        self._gauges: Dict[str, Any] = {}
+        self._hists: Dict[str, Any] = {}
         self._stream: Optional[_StreamSink] = None
         self._flush_lock = threading.Lock()
         self._listeners: List[Callable[["Telemetry"], None]] = []
@@ -222,11 +231,11 @@ class Telemetry:
     # ---------------------------------------------------------------- levels
     @property
     def enabled(self) -> bool:
-        return self.level != "off"
+        return self._on
 
     @property
     def trace_enabled(self) -> bool:
-        return self.level in ("trace", "profile")
+        return self._trace
 
     @property
     def profile_enabled(self) -> bool:
@@ -290,22 +299,31 @@ class Telemetry:
 
     # --------------------------------------------------------------- metrics
     def count(self, name: str, n: int = 1) -> None:
-        if not self.enabled:
+        if not self._on:
             self.suppressed += 1
             return
-        self.metrics.counter(name).inc(n)
+        inst = self._counters.get(name)
+        if inst is None:
+            inst = self._counters[name] = self.metrics.counter(name)
+        inst.value += n
 
     def gauge(self, name: str, value: float) -> None:
-        if not self.enabled:
+        if not self._on:
             self.suppressed += 1
             return
-        self.metrics.gauge(name).set(value)
+        inst = self._gauges.get(name)
+        if inst is None:
+            inst = self._gauges[name] = self.metrics.gauge(name)
+        inst.set(value)
 
     def observe(self, name: str, value: float) -> None:
-        if not self.enabled:
+        if not self._on:
             self.suppressed += 1
             return
-        self.metrics.histogram(name).observe(value)
+        inst = self._hists.get(name)
+        if inst is None:
+            inst = self._hists[name] = self.metrics.histogram(name)
+        inst.observe(value)
 
     # ------------------------------------------------------------ inspection
     def events(self) -> List[Dict[str, Any]]:

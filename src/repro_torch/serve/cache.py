@@ -114,16 +114,27 @@ class ColumnCache:
         # into serve.cache.shard<i>.* so per-shard balance is observable.
         self._tel = telemetry
         self._shard_id = shard_id
+        # short -> (counter name, per-shard counter name): built once, not
+        # per probe
+        self._names: Dict[str, Tuple[str, Optional[str]]] = {}
 
     def __len__(self) -> int:
         return len(self._lru)
 
     def _count(self, short: str, n: int = 1, *, per_shard: bool = False) -> None:
-        if self._tel is None:
+        tel = self._tel
+        if tel is None:
             return
-        self._tel.count(f"serve.cache.{short}", n)
-        if per_shard and self._shard_id is not None:
-            self._tel.count(f"serve.cache.shard{self._shard_id}.{short}", n)
+        names = self._names.get(short)
+        if names is None:
+            shard = (
+                None if self._shard_id is None
+                else f"serve.cache.shard{self._shard_id}.{short}"
+            )
+            names = self._names[short] = (f"serve.cache.{short}", shard)
+        tel.count(names[0], n)
+        if per_shard and names[1] is not None:
+            tel.count(names[1], n)
 
     def get(self, version: int, node: int) -> Optional[np.ndarray]:
         key = (version, node)

@@ -170,6 +170,9 @@ class MicroBatcher:
         self._classes: Dict[str, "deque[_Entry]"] = {
             c: deque() for c in PRIORITY_CLASSES
         }
+        # per-class gauge names, built once instead of on every tick
+        self._depth_names = {c: f"serve.queue_depth.{c}" for c in PRIORITY_CLASSES}
+        self._inflight_names: Dict[str, str] = {}
         self._pending_count = 0
         self._cond = threading.Condition()
         # per-instance so the SLO degradation hook can shed a class's
@@ -355,8 +358,9 @@ class MicroBatcher:
             depth = self._pending_count
             per_class = {c: len(q) for c, q in self._classes.items()}
         tel.gauge("serve.queue_depth", depth)
+        names = self._depth_names
         for c, d in per_class.items():
-            tel.gauge(f"serve.queue_depth.{c}", d)
+            tel.gauge(names.get(c) or f"serve.queue_depth.{c}", d)
         tel.gauge("serve.batch_size", len(live))
         tel.gauge("serve.batch_occupancy", len(live) / self.max_batch)
         # the scheduler tick is the serve tier's streaming pump: one
@@ -371,8 +375,12 @@ class MicroBatcher:
                 self._inflight_by_class[cls] += delta
             snapshot = dict(self._inflight_by_class) if tel else None
         if tel is not None:
+            names = self._inflight_names
             for c, n in snapshot.items():
-                tel.gauge(f"serve.inflight.{c}", n)
+                name = names.get(c)
+                if name is None:
+                    name = names[c] = f"serve.inflight.{c}"
+                tel.gauge(name, n)
 
     def _complete(self, live: List[_Entry], results: List[QueryResult]) -> None:
         now = time.monotonic()

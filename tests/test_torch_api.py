@@ -213,16 +213,20 @@ NOT_PORTED_SPECS = [
     ("bench", {"bench": {"suites": ["table7_sigma"]}}, None),
     ("train", {"train": {"arch": "gcn-cora", "steps": 2}}, "A.9"),
     ("dryrun", {"dryrun": {}}, "A.9"),
-    ("sharded", {"solve": {"backend": "sharded", "devices": 1, "seed_mode": "fixed"}}, "A.8"),
+    ("sharded", {"solve": {"backend": "sharded", "devices": 1, "seed_mode": "fixed"}}, None),
 ]
 
 
 @pytest.mark.parametrize(
     "overrides,item", [p[1:] for p in NOT_PORTED_SPECS], ids=[p[0] for p in NOT_PORTED_SPECS]
 )
-def test_unported_sections_raise_and_name_their_item(tmp_path, overrides, item):
+def test_unported_sections_raise_and_name_their_item(tmp_path, request, overrides, item):
     """A section still to port raises, names its queue item and writes
-    nothing; a ported one (``obs``, ``ft``) runs like ``repro``'s."""
+    nothing; a ported one (``obs``, ``ft``, ``sharded`` on a world of one
+    gloo rank) runs like ``repro``'s."""
+    from repro_torch.parallel.mesh import destroy_owned_world
+
+    request.addfinalizer(destroy_owned_world)  # the sharded case's world
     d = _quickstart_without_obs()
     d.update(overrides)
     spec = ta.RunSpec.from_dict(d)
@@ -410,11 +414,21 @@ def test_cli_unported_subcommands(tmp_path, capsys, cmd):
 
 
 def test_cli_solve_shim_refuses_sharded(capsys):
-    with pytest.warns(DeprecationWarning, match="repro_torch run"):
-        with pytest.raises(SystemExit) as exc:  # a usage error, as in the reference
-            tcli.main(["solve", "--backend", "sharded", "--devices", "1", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "queue A.8" in capsys.readouterr().err
+    """The shim solves on ``sharded`` over a world of one rank, and refuses
+    a mesh larger than the world, as the reference refuses more devices
+    than its host has."""
+    from repro_torch.parallel.mesh import destroy_owned_world
+
+    small = ["--drugs", "20", "--diseases", "15", "--targets", "10", "--device", "cpu"]
+    try:
+        with pytest.warns(DeprecationWarning, match="repro_torch run"):
+            assert tcli.main(["solve", "--backend", "sharded", "--devices", "1", *small]) == 0
+        assert "[solve] backend: sharded" in capsys.readouterr().out
+        with pytest.warns(DeprecationWarning, match="repro_torch run"):
+            with pytest.raises(ValueError, match="needs 2 devices"):
+                tcli.main(["solve", "--backend", "sharded", "--devices", "2", *small])
+    finally:
+        destroy_owned_world()
 
 
 def test_cli_without_cuda_exits_2(capsys, monkeypatch):

@@ -4,8 +4,9 @@
 Every test of the reference's harness file runs here against the port's
 modules, with the port's three documented differences: a suite takes
 ``(fast, device)``, the report is ``BENCH_torch_<label>.json``, and the
-backend matrix iterates the port's registry (``dense``, ``kernel``,
-``sparse``; no ``sharded`` engine yet).  Beyond them: the same injected
+backend matrix iterates the port's registry (the reference's keys,
+``sharded`` fanned out per rank count and run when the world has that
+many ranks).  Beyond them: the same injected
 clock gives equal ``TimingStats`` in both packages, a report written by
 either package validates under the other's schema, ``compare``'s CLI
 gives the same exit code in both packages for each baseline/candidate
@@ -390,22 +391,23 @@ def test_registry_hands_each_suite_the_pass_device():
 # backend matrix
 # ---------------------------------------------------------------------------
 def test_matrix_expansion_filters_by_device_count():
-    backends = lp_backend_specs()  # the port's registry: no sharded columns
+    backends = lp_backend_specs()  # the registry, sharded fanned out 1/2/4
     params = [{"alg": "dhlp1"}, {"alg": "dhlp2"}]
     cells, skipped = expand_matrix(backends, params, device_count=2)
     names = {b.name for b, _ in cells}
-    assert names == {"dense", "kernel", "sparse"}
-    assert skipped == []
-    assert len(cells) == 3 * 2
+    # a sharded column runs when the world has exactly its ranks
+    assert names == {"dense", "kernel", "sparse", "sharded2"}
+    assert [b.name for b in skipped] == ["sharded1", "sharded4"]
+    assert len(cells) == 4 * 2
     # params are copied per cell, not shared
     cells[0][1]["alg"] = "mutated"
     assert params[0]["alg"] == "dhlp1"
-    # a sharded column (once A.8 registers the engine) needs its devices
-    sharded = [BackendSpec(f"sharded{k}", "sharded", devices=k) for k in (1, 2, 4)]
-    cells2, skipped2 = expand_matrix(list(backends) + sharded, params, device_count=2)
-    assert [b.name for b in skipped2] == ["sharded4"]
-    assert len(cells2) == 5 * 2
+    _, skipped1 = expand_matrix(backends, params, device_count=1)
+    assert [b.name for b in skipped1] == ["sharded2", "sharded4"]
     assert BackendSpec("sharded8", "sharded", devices=8).available(4) is False
+    assert BackendSpec("sharded8", "sharded", devices=8).available(8) is True
+    assert [s.name for s in lp_backend_specs(full=True) if s.kind == "sharded"] == [
+        "sharded1", "sharded2", "sharded4", "sharded8"]
 
 
 def test_matrix_specs_iterate_registry():
@@ -414,9 +416,10 @@ def test_matrix_specs_iterate_registry():
     from repro.bench.matrix import lp_backend_specs as ref_specs
     from repro_torch.engine import available_backends
 
-    fast = {s.name for s in lp_backend_specs()}
-    assert fast == set(available_backends()) == {"dense", "kernel", "sparse"}
-    assert fast <= {s.name for s in ref_specs()}
+    fast = [s.name for s in lp_backend_specs()]
+    assert set(available_backends()) == {"dense", "kernel", "sharded", "sparse"}
+    assert fast == [s.name for s in ref_specs()]
+    assert [s.name for s in lp_backend_specs(full=True)] == [s.name for s in ref_specs(full=True)]
 
 
 # ---------------------------------------------------------------------------
@@ -619,7 +622,7 @@ def test_bench_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["9"]
+    assert out.stdout.split() == ["10"]  # the ported suites, fig34_parallelism among them
 
 
 # ---------------------------------------------------------------------------

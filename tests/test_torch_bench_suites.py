@@ -1,11 +1,13 @@
 """The port's bench suites at their fast sizes on the CPU, held to the
 reference's committed ``benchmarks/baseline.json``.
 
-One pass of every registered suite (module fixture) feeds one test per
-suite: its record keys equal the baseline's keys for that suite minus
-the ones the port does not emit (``NOT_EMITTED``: the suites and cells
-whose modules are not ported, and XLA's ``xla_ref`` kernel records, whose
-counterparts here are the ``torch_ref`` ones), and its strict metrics
+One pass of every registered suite (module fixture, run in a fresh
+working directory so the autotune cache it writes lands there) feeds one
+test per suite: its record keys equal the baseline's keys for that suite
+minus the ones the port does not emit (``NOT_EMITTED``: the suites whose
+modules are not ported, the ``lp_matrix`` columns that need a world of 2
+or 4 ranks, and XLA's ``xla_ref`` kernel records, whose counterparts
+here are the ``torch_ref`` ones), and its strict metrics
 (iteration counts, accuracy, agreement, the roofline FLOP/byte counts)
 pass ``compare_reports`` against the baseline restricted to those keys.
 ``table7_sigma`` and ``table34_deleted`` are also held to the reference
@@ -33,13 +35,8 @@ from repro_torch.bench.schema import record_key, validate_report
 ROOT = Path(__file__).resolve().parent.parent
 BASELINE = load_report(str(ROOT / "benchmarks" / "baseline.json"))
 NOT_EMITTED = {
-    "fig34_parallelism/d1s1@sharded1",
-    "fig34_parallelism/d2s1@sharded2",
-    "lp_matrix/dhlp2_sharded1@sharded1",
     "lp_matrix/dhlp2_sharded2@sharded2",
     "lp_matrix/dhlp2_sharded4@sharded4",
-    "kernel_variants/drugnet_autotuned@sparse",
-    "kernel_variants/autotune_cache@sparse",
     "lp_on_graph/dhlp2_lp@dense",
     "lp_on_graph/dhlp2_lp_csr@sparse",
     "lp_on_graph/gcn@gcn",
@@ -51,16 +48,30 @@ NOT_EMITTED = {
     "kernels/embedding_bag_ref_b4096@xla_ref",
     "kernels/attention_ref_l256@xla_ref",
 }
-SUITES = ["kernel_variants", "kernels", "lp_matrix", "scenario_matrix", "serve", "table2_cv",
-          "table34_deleted", "table56_scaling", "table7_sigma"]
+SUITES = ["fig34_parallelism", "kernel_variants", "kernels", "lp_matrix", "scenario_matrix",
+          "serve", "table2_cv", "table34_deleted", "table56_scaling", "table7_sigma"]
 
 
 @pytest.fixture(scope="module")
-def cpu_pass():
+def cpu_pass(tmp_path_factory):
     """Every registered suite's fast pass on the CPU, as one report."""
+    from repro_torch.engine import autotune
+    from repro_torch.parallel.mesh import destroy_owned_world
+
     import_suite_modules()
     report = BenchReport("ci", environment=environment_info("cpu"))
-    failures = run_suites(report, fast=True, device=torch.device("cpu"))
+    cwd, threads = os.getcwd(), torch.get_num_threads()
+    os.chdir(tmp_path_factory.mktemp("bench_cwd"))
+    # one intra-op thread: beside the other test workers, more threads
+    # oversubscribe the cores and the small solves slow down ~4x
+    torch.set_num_threads(1)
+    try:
+        failures = run_suites(report, fast=True, device=torch.device("cpu"))
+    finally:
+        os.chdir(cwd)
+        torch.set_num_threads(threads)
+        autotune.clear_memo()
+        destroy_owned_world()  # the sharded1 column's world of one rank
     assert failures == 0, report.errors
     doc = report.to_dict()
     validate_report(doc)
@@ -73,8 +84,7 @@ def test_registered_suites_are_the_ported_ones():
     assert names == set(SUITES)
     ref_suites = {r["suite"] for r in BASELINE["records"]}
     assert ref_suites == names | set(NOT_PORTED_SUITES)
-    assert NOT_PORTED_SUITES == {"fig34_parallelism": "A.8", "lp_on_graph": "A.9.4",
-                                 "roofline": "A.9.5"}
+    assert NOT_PORTED_SUITES == {"lp_on_graph": "A.9.4", "roofline": "A.9.5"}
 
 
 @pytest.mark.parametrize("suite", SUITES)
@@ -114,8 +124,11 @@ def test_suite_matches_the_reference_run_live(cpu_pass, suite):
 
 def test_kernel_variants_carry_the_h100_roofline(cpu_pass):
     recs = [r for r in cpu_pass["records"] if r["suite"] == "kernel_variants"]
-    assert [r["name"] for r in recs] == ["drugnet_legacy", "drugnet_fused", "drugnet_bf16",
+    assert [r["name"] for r in recs] == ["drugnet_legacy", "drugnet_fused", "drugnet_autotuned",
+                                         "drugnet_bf16", "autotune_cache",
                                          "powerlaw_race_legacy", "powerlaw_race_fused"]
+    tuned = recs.pop(4)
+    assert tuned["derived"]["cache_hit_second"] == 1.0 and tuned["strict"] == ["cache_hit_second"]
     for r in recs:
         assert r["params"]["peak_model"] == "h100_sxm"
         d = r["derived"]
@@ -148,8 +161,8 @@ def test_run_bench_writes_the_ports_report(tmp_path, monkeypatch, capsys):
 def test_cli_runs_bench_ci_on_the_cpu(tmp_path):
     """``python -m repro_torch run examples/specs/bench_ci.json --device
     cpu --no-write`` exits 0 and names each suite it skips; ``bench
-    --only fig34_parallelism`` exits 2 naming A.8."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+    --only roofline`` exits 2 naming A.9.5."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                REPRO_TORCH_SCENARIO_CACHE_DIR=str(tmp_path / "cache"))
     spec = str(ROOT / "examples" / "specs" / "bench_ci.json")
     cwd = tmp_path / "cwd"
@@ -161,14 +174,17 @@ def test_cli_runs_bench_ci_on_the_cpu(tmp_path):
     lines = out.stdout.splitlines()
     for suite, item in NOT_PORTED_SUITES.items():
         assert f"skipped {suite}: not ported (ROADMAP {item})" in lines
-    assert "[bench] label=ci suites=9 records=52 failures=0" in lines
-    assert not list(cwd.iterdir())  # --no-write: no report, no results/
+    assert "[bench] label=ci suites=10 records=57 failures=0" in lines
+    # --no-write: no report and no run results; the autotune cache the
+    # kernel_variants suite's sweep persists (as the reference's does) is all
+    left = sorted(str(p.relative_to(cwd)) for p in cwd.rglob("*") if p.is_file())
+    assert len(left) == 1 and left[0].startswith("results/autotune/"), left
     bad = subprocess.run(
-        [sys.executable, "-m", "repro_torch", "bench", "--only", "fig34_parallelism",
+        [sys.executable, "-m", "repro_torch", "bench", "--only", "roofline",
          "--device", "cpu"], capture_output=True, text=True, env=env, timeout=120,
         cwd=str(cwd))
     assert bad.returncode == 2
-    assert "ROADMAP.md queue A.8" in bad.stderr
+    assert "ROADMAP.md queue A.9.5" in bad.stderr
     listed = subprocess.run(
         [sys.executable, "-m", "repro_torch", "bench", "--list", "--device", "cpu"],
         capture_output=True, text=True, env=env, timeout=120, cwd=str(cwd))

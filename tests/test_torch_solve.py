@@ -163,9 +163,10 @@ def test_registry_and_auto_policy_match_reference():
         assert te.resolve_backend("auto", num_nodes=n) == re_.resolve_backend(
             "auto", num_nodes=n
         )
-    assert set(te.available_backends()) == {"dense", "sparse", "kernel"}
+    assert set(te.available_backends()) == set(re_.available_backends())
+    assert te.resolve_backend("sharded") == re_.resolve_backend("sharded") == "sharded"
     with pytest.raises(te.UnknownBackendError):
-        te.resolve_backend("sharded")
+        te.resolve_backend("giraph")
 
 
 def test_unported_paths_raise_and_name_the_roadmap(nets):
