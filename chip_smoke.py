@@ -142,14 +142,40 @@ Phases (each raises on failure, so the script exits non-zero):
     with the ``kernel`` serve engine's top-10 lists, a ``remesh`` of the
     solve's state onto a one-device mesh, bit for bit; wall per round
     beside B1's;
-14. the kernel list: launches of each kernel on its path (phases 4-5,
-    11 (b)-(e) and 13 (a) for ``csr_round_residual``, phases 4-5 for
-    ``lp_round``, phases 6, 11 (d) and 13 (a) for ``csr_round``, phase 9
-    for ``csr_aggregate``, phase 10 for ``embedding_bag``, phase 10c for
-    ``flash_attention``; all must be non-zero), with the phase 3, 8 and
-    10a measurements (``csr_round_residual``'s and ``csr_round``'s error
-    also over phases 11 and 13's shapes);
-15. the result line.
+14. the kernel list, printed after phase 15 has run: launches of each
+    kernel on its path (phases 4-5, 11 (b)-(e) and 13 (a) for
+    ``csr_round_residual``, phases 4-5 for ``lp_round``, phases 6, 11 (d),
+    13 (a) and 15 (a, b) for ``csr_round``, phases 9 and 15 (c) for
+    ``csr_aggregate``, phase 10 for ``embedding_bag``, phase 10c for
+    ``flash_attention``; all must be non-zero, and so must phase 15's
+    ``csr_round`` and ``csr_aggregate``), with the phase 3, 8 and 10a
+    measurements (``csr_round_residual``'s error also over phases 11 and
+    13's shapes, ``csr_round``'s over phases 13 and 15's,
+    ``csr_aggregate``'s over phase 15's);
+15. the paper's own arch and the rest of the GNN zoo at full size, each
+    sub-phase's seconds and peak device memory printed: (a) ``dhlp-bio``
+    (``get_arch("dhlp-bio").make_cell``) at ``scale_1m`` and ``scale_20m``
+    (53,000 / 240,000 nodes, 1 M / 20 M ``powerlaw_graph`` edges, S =
+    4,096, α = 0.5, 10 rounds a step) in f32: the operator α·D^-1/2 A
+    D^-1/2, Y the identity on the first S nodes, F0 = Y; the host build
+    and the width-bucket plan timed (buckets, padding ratio and the widest
+    row printed); the cell's step through ``csr_round`` held to the plain
+    step (``scatter_spmm`` in column chunks) at ``F32_TOL``; ``csr_round``
+    on every bucket held to its plain version at ``F32_TOL`` (all S
+    columns at ``scale_1m``, 512 at ``scale_20m``) and the planted faults
+    rejected there; its time per round (CUDA events, median) beside the
+    widest bucket's share, the bounds (the HBM floor of the live gathers
+    among them) and ``torch.addmm`` over the CSR operator; (b) the
+    ``scale_1m`` step with ``REPRO_LP_DTYPE=bf16`` held to (a)'s f32 step
+    at ``BF16_TOL``; (c) GAT at ``full_graph_sm`` and ``ogb_products``,
+    SAGE at ``minibatch_lg`` (``erdos_renyi``, ``NeighborSampler`` fanouts
+    (15, 10) from 1,024 seeds; ``csr_aggregate`` at both hops held to its
+    plain version at ``F32_TOL``, the logits to the plain path), DimeNet at
+    ``molecule`` and MeshGraphNet at ``molecule`` and at ``minibatch_lg``'s
+    padded union sizes: every output finite, at ``full_graph_sm`` and
+    ``molecule`` held to the same module on the CPU at ``rtol=1e-4,
+    atol=1e-5``, every forward timed;
+16. the result line.
 
 Phases 4, 6, 7, 9, 10, 10c and 11 each also trace calls with
 ``torch.profiler`` (after one untraced warm-up call).
@@ -227,12 +253,16 @@ def cuda_ms(torch, fn, *, warmup: int = 2, iters: int = 10) -> float:
 
 
 def check_close(np, name, got, want, tol, *, quiet: bool = False) -> float:
-    got = got.float().cpu().numpy()
-    want = want.float().cpu().numpy()
-    if got.shape != want.shape or not np.isfinite(got).all():
-        fail(f"{name}: shape {got.shape} vs {want.shape} or non-finite values")
-    err = float(np.max(np.abs(got - want))) if got.size else 0.0
-    if not np.allclose(got, want, **tol):
+    """``got`` finite and within ``tol`` of ``want`` (numpy's ``allclose``
+    rule, on the tensors' device); returns max|Δ|."""
+    import torch
+
+    got = got.float()
+    want = want.float().to(got.device)
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite values")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, **tol):
         fail(f"{name}: kernel disagrees with its plain version, max|Δ|={err}")
     if not quiet:
         log(f"  {name}: max|Δ| vs plain = {err:.3e} (rtol={tol['rtol']}, atol={tol['atol']})")
@@ -814,11 +844,13 @@ def gather_counts(buckets):
 def agrees(np, got, want, tol) -> tuple:
     """The f32 gate with NaN: the same NaN positions and every other value
     within ``tol``.  Returns ``(ok, max|Δ| over finite pairs)``."""
-    got = got.float().cpu().numpy()
-    want = want.float().cpu().numpy()
-    both = np.isfinite(got) & np.isfinite(want)
-    err = float(np.max(np.abs(got[both] - want[both]))) if both.any() else 0.0
-    ok = np.array_equal(np.isnan(got), np.isnan(want)) and np.allclose(
+    import torch
+
+    got = got.float()
+    want = want.float().to(got.device)
+    both = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got[both] - want[both]).abs().max()) if bool(both.any()) else 0.0
+    ok = torch.equal(torch.isnan(got), torch.isnan(want)) and torch.allclose(
         got, want, equal_nan=True, **tol)
     return ok, err
 
@@ -1876,6 +1908,476 @@ def sharded_phase(torch, np, dev, net, main_solve, dhlp1_solve, top_main, b1_ms)
         destroy_owned_world()
 
 
+# Phase 15: the dhlp-bio step at the paper's Table 5-6 scales (B3) and the
+# rest of the GNN zoo at FULL width (B4 in SAGE).  Runs before phase 14's
+# kernel list, which counts its launches.
+DHLP_SCALES = ("scale_1m", "scale_20m")
+# columns of the per-bucket B3 gate (None: all S): at scale_20m the plain
+# version's gathers of the hub bucket cannot be held whole
+DHLP_GATE_COLS = {"scale_1m": None, "scale_20m": 512}
+MODEL_TOL = dict(rtol=1e-4, atol=1e-5)  # a module on the card vs the same module on the CPU
+ZOO_ITERS = 5  # timed calls per measurement (CUDA events, one pair a call; the median)
+
+
+def event_median_ms(torch, fn, *, iters: int = ZOO_ITERS) -> float:
+    """Median device time of ``fn`` over ``iters`` calls, one CUDA event
+    pair a call, after one untimed call."""
+    import statistics
+
+    fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(statistics.median(times))
+
+
+class SubPhase:
+    """Logs a sub-phase's seconds and its peak ``max_memory_allocated``."""
+
+    def __init__(self, torch, label: str):
+        self.torch, self.label = torch, label
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self.torch.cuda.empty_cache()
+        self.torch.cuda.reset_peak_memory_stats()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self.torch.cuda.synchronize()
+            log(f"  [{self.label}: {time.perf_counter() - self.t0:.1f} s, peak device memory "
+                f"{self.torch.cuda.max_memory_allocated() / 1e9:.2f} GB]")
+        return False
+
+
+def same_as_cpu(np, name, got, want) -> float:
+    """The module on the card against the same module on the CPU: finite, of
+    the same shape, within ``MODEL_TOL``."""
+    got = got.float().cpu().numpy()
+    want = want.float().cpu().numpy()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{name}: shape {got.shape} vs {want.shape} or non-finite values on the card")
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    if not np.allclose(got, want, **MODEL_TOL):
+        fail(f"{name}: the card disagrees with the CPU, max|Δ|={err}")
+    log(f"  {name}: max|Δ| card vs CPU = {err:.3e} (rtol={MODEL_TOL['rtol']}, "
+        f"atol={MODEL_TOL['atol']})")
+    return err
+
+
+def f64_row_sums(torch, nbr, wgt, live, F, base, c, rows, chunk: int = 1 << 18):
+    """``c·base + Σ_k wgt·F[nbr]`` of the given rows of a bucket, in f64
+    (their live slots, ``chunk`` at a time)."""
+    out = torch.empty((len(rows), F.shape[1]), dtype=torch.float64, device=F.device)
+    for i, r in enumerate(rows):
+        acc = c * base[r].double()
+        for k0 in range(0, int(live.lengths[r]), chunk):
+            k1 = min(k0 + chunk, int(live.lengths[r]))
+            acc += wgt[r, k0:k1].double() @ F[nbr[r, k0:k1].long()].double()
+        out[i] = acc
+    return out
+
+
+def dhlp_bio_phase(torch, np, dev, shape: str, *, bf16: bool) -> dict:
+    """Phase 15 (a) at one ``LP_SHAPES`` point (and (b), the bf16 step, when
+    ``bf16``): the ``powerlaw_graph`` network, the operator α·D^-1/2 A
+    D^-1/2, Y the identity on the first S nodes and F0 = Y; the cell's step
+    through B3 held to the plain step (``scatter_spmm`` in column chunks) at
+    ``F32_TOL``; B3 on every bucket held to ``csr_round_ref`` and the
+    planted faults rejected; B3's time per round beside its bounds, the
+    widest bucket's share and ``torch.addmm`` over the CSR operator."""
+    from repro_torch.configs import dhlp_bio
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.graph.segment import gcn_norm
+    from repro_torch.graph.structures import powerlaw_graph
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.segment_reduce import LiveRows, csr_round_op, csr_round_ref
+
+    cfg = dhlp_bio.FULL
+    sh = dhlp_bio.LP_SHAPES[shape]
+    n, e, s = sh["num_nodes"], sh["num_edges"], sh["seeds"]
+    beta2 = (1.0 - cfg.alpha) ** 2
+    res = {}
+    with SubPhase(torch, f"{shape} network and plan"):
+        t0 = time.perf_counter()
+        g = powerlaw_graph(n, e, seed=0, device=dev)
+        src, dst = (torch.from_numpy(a).to(dev) for a in (g.src, g.dst))
+        w = cfg.alpha * gcn_norm(src, dst, torch.ones(e, device=dev), n)
+        Y = torch.zeros((n, s), device=dev)
+        Y[torch.arange(s, device=dev), torch.arange(s, device=dev)] = 1.0
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+        deg = np.bincount(g.dst, minlength=n)
+        nnz = int(torch.count_nonzero(w))
+        log(f"  {shape}: powerlaw_graph({n}, {e}, seed=0) and the operator in {t_host:.2f} s "
+            f"(numpy draws on the host, the sort and D^-1/2 A D^-1/2 on the card); "
+            f"{nnz} nonzero weights; node {int(deg.argmax())} has the most in-edges, "
+            f"{int(deg.max())}; S = {s}")
+        t0 = time.perf_counter()
+        plan = dhlp_bio.lp_plan(src, dst, w, n)
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t0
+        buckets = plan.buckets
+        widths = [int(nbr.shape[1]) for _, nbr, _, _ in buckets]
+        wi = int(np.argmax(widths))
+        live_slots = sum(lv.slots for _, _, _, lv in buckets)
+        slots = sum(int(nbr.numel()) for _, nbr, _, _ in buckets)
+        _, gathered = gather_counts([(nbr, wgt, lv) for _, nbr, wgt, lv in buckets])
+        log(f"  plan (BlockedCSR.from_edges on the host, the legacy upload): {t_plan:.2f} s; "
+            f"{len(buckets)} buckets, {slots} slots, padding ratio {1 - live_slots / slots:.4f}; "
+            f"{live_slots} live slots (nonzeros {nnz}); widest bucket {wi}: "
+            f"{buckets[wi][1].shape[0]} x {widths[wi]}, its longest row "
+            f"{int(buckets[wi][3].lengths.max())} live slots")
+        if live_slots != nnz:
+            fail(f"{shape} plan: {live_slots} live slots for {nnz} nonzero weights")
+
+    with SubPhase(torch, f"{shape} step through B3, held to the plain step"):
+        cell = get_arch("dhlp-bio").make_cell(shape)
+        args = (src, dst, w, Y, Y.clone())
+        got_specs = [(tuple(a.shape), a.dtype) for a in args]
+        want_specs = [(sp.shape, sp.dtype) for sp in cell.input_specs]
+        if got_specs != want_specs:
+            fail(f"{shape}: inputs {got_specs}, the cell's specs {want_specs}")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cell.step_fn(*args)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        counts = launch_counts()
+        want_launches = cfg.rounds_per_step * len(buckets)
+        if counts["csr_round"] != want_launches or sum(counts.values()) != want_launches:
+            fail(f"{shape} step launched {counts}, expected {want_launches} csr_round")
+        res["b3"] = counts["csr_round"]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = dhlp_bio.lp_step_plain(cfg, *args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end) / cfg.rounds_per_step
+        err = check_close(np, f"dhlp-bio {shape} step ({cfg.rounds_per_step} rounds) through "
+                          "B3 vs the plain step", out, plain, F32_TOL)
+        del plain
+        log(f"  the cell's step: {t_step:.2f} s wall (plan build and {cfg.rounds_per_step} rounds, "
+            f"{res['b3']} csr_round launches); plain step {plain_ms:.2f} ms a round "
+            f"(scatter_spmm in chunks of {max(1, dhlp_bio.PLAIN_MESSAGE_BUDGET // e)} columns)")
+
+    with SubPhase(torch, f"{shape} B3 on every bucket, planted faults"):
+        cols = DHLP_GATE_COLS[shape] or s
+        gen = torch.Generator(device=dev).manual_seed(15)
+        Fg = torch.rand((n, cols), generator=gen, device=dev)
+        Yg = Y[:, :cols].contiguous()
+        bucket_err = 0.0
+        for rows, nbr, wgt, live in buckets:
+            got = csr_round_op(nbr, wgt, Fg, Yg[rows], c=beta2, live=live)
+            torch.cuda.synchronize()
+            bucket_err = max(bucket_err, check_close(
+                np, f"csr_round {shape} bucket {nbr.shape[0]}x{nbr.shape[1]}", got,
+                csr_round_ref(nbr, wgt, Fg, Yg[rows], beta2), F32_TOL, quiet=True))
+        log(f"  csr_round f32 on all {len(buckets)} buckets (S = {cols}): max|Δ| vs plain "
+            f"{bucket_err:.3e} (rtol={F32_TOL['rtol']}, atol={F32_TOL['atol']})")
+        rows, nbr, wgt, live = buckets[wi]
+        base_w = Yg[rows]
+        longest = torch.argsort(live.lengths, descending=True)[:4].tolist()
+        exact = f64_row_sums(torch, nbr, wgt, live, Fg, base_w, beta2, longest)
+        k_err = float((csr_round_op(nbr, wgt, Fg, base_w, c=beta2, live=live)[longest].double()
+                       - exact).abs().max())
+        p_err = float((csr_round_ref(nbr, wgt, Fg, base_w, beta2)[longest].double()
+                       - exact).abs().max())
+        log(f"  widest bucket, its {len(longest)} longest rows ({int(live.lengths[longest[0]])} "
+            f"slots and down) vs an f64 sum: kernel max|Δ| {k_err:.3e}, plain {p_err:.3e} "
+            f"(values up to {float(exact.abs().max()):.3f})")
+        short = LiveRows((live.lengths - 1).clamp_min(0), 0)
+        ok, s_err = agrees(np, csr_round_op(nbr, wgt, Fg, base_w, c=beta2, live=short),
+                           csr_round_ref(nbr, wgt, Fg, base_w, beta2), F32_TOL)
+        if ok:
+            fail(f"csr_round {shape} widest bucket: the gate accepted every row one live slot "
+                 "short")
+        log(f"  csr_round {shape} widest bucket: planted fault 'live - 1 on every row' rejected "
+            f"(max|Δ| {s_err:.3e})")
+        # both planted faults on the bucket of the most rows: in the widest one
+        # every row names node 0, the pads' id, among its live slots, so a NaN
+        # in F row 0 reaches every row through a live slot as well
+        rows, nbr, wgt, live = max(buckets, key=lambda b: b[1].shape[0])
+        base_m = Yg[rows]
+        round_fault_checks(
+            torch, np, f"csr_round {shape} bucket of the most rows ({nbr.shape[0]}x"
+            f"{nbr.shape[1]}, S = {cols})", nbr, live, Fg,
+            lambda nb, lv, F_: csr_round_op(nb, wgt, F_, base_m, c=beta2, live=lv),
+            lambda F_: csr_round_ref(nbr, wgt, F_, base_m, beta2),
+        )
+        del Fg, Yg, base_w, base_m
+    res["err"] = max(err, bucket_err)
+
+    with SubPhase(torch, f"{shape} B3 timed"):
+        F = out
+        bases = [Y[r] for r, _, _, _ in buckets]
+        bucket_out = torch.empty_like(F)
+        offs = np.cumsum([0] + [int(nbr.shape[0]) for _, nbr, _, _ in buckets])
+
+        def b3_round():
+            for i, (_, nbr, wgt, live) in enumerate(buckets):
+                csr_round_op(nbr, wgt, F, bases[i], c=beta2, live=live,
+                             out=bucket_out[int(offs[i]):int(offs[i + 1])])
+
+        rows, nbr, wgt, live = buckets[wi]
+        ms = event_median_ms(torch, b3_round)
+        wide_ms = event_median_ms(torch, lambda: csr_round_op(
+            nbr, wgt, F, bases[wi], c=beta2, live=live,
+            out=bucket_out[int(offs[wi]):int(offs[wi + 1])]))
+        a_csr = torch.sparse_coo_tensor(torch.stack([dst.long(), src.long()]), w, (n, n),
+                                        check_invariants=True).coalesce().to_sparse_csr()
+        lib_ms = event_median_ms(torch, lambda: torch.addmm(Y, a_csr, F, beta=beta2))
+        del a_csr, bases, bucket_out
+        bound_ms, by = bound(2.0 * nnz * s, 4.0 * n * s * 3 + 8.0 * live_slots + 4.0 * n)
+        floor_ms = 4.0 * gathered * s / PEAK_BYTES * 1e3
+        log(f"  csr_round per round ({len(buckets)} launches, S = {s}): {ms:.4f} ms median of "
+            f"{ZOO_ITERS}; the widest bucket alone {wide_ms:.4f} ms ({wide_ms / ms:.3f} of the "
+            f"round); plain {plain_ms:.4f} ms; torch.addmm(CSR) {lib_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({by}); HBM floor of the live gathers ({gathered} slots x S x "
+            f"4 B = {4.0 * gathered * s / 1e9:.2f} GB) {floor_ms:.4f} ms, {ms / floor_ms:.2f}x")
+    res.update(ms=ms, wide_ms=wide_ms, plain_ms=plain_ms, lib_ms=lib_ms, bound_ms=bound_ms,
+               floor_ms=floor_ms, buckets=len(buckets))
+
+    if bf16:
+        import dataclasses
+        import os
+
+        with SubPhase(torch, f"{shape} bf16 step (REPRO_LP_DTYPE=bf16)"):
+            old = os.environ.get("REPRO_LP_DTYPE")
+            os.environ["REPRO_LP_DTYPE"] = "bf16"
+            try:
+                cell = get_arch("dhlp-bio").make_cell(shape)
+            finally:
+                if old is None:
+                    os.environ.pop("REPRO_LP_DTYPE")
+                else:
+                    os.environ["REPRO_LP_DTYPE"] = old
+            bf = (src, dst) + tuple(x.to(torch.bfloat16) for x in (w, Y, Y))
+            if [sp.dtype for sp in cell.input_specs] != [a.dtype for a in bf]:
+                fail(f"{shape} bf16 cell specs {cell.input_specs}")
+            reset_launch_counts()
+            out_bf = cell.step_fn(*bf)
+            torch.cuda.synchronize()
+            n_bf = launch_counts()["csr_round"]
+            if out_bf.dtype != torch.bfloat16 or n_bf != want_launches:
+                fail(f"{shape} bf16 step: dtype {out_bf.dtype}, {n_bf} csr_round launches")
+            res["b3"] += n_bf
+            check_close(np, f"dhlp-bio {shape} bf16 step through B3 vs (a)'s f32 step", out_bf,
+                        out, BF16_TOL)
+            plan_bf = dhlp_bio.lp_plan(src, dst, bf[2], n)
+            one = dataclasses.replace(cfg, rounds_per_step=1)
+            ms_bf = event_median_ms(torch, lambda: dhlp_bio.lp_rounds(plan_bf, bf[3], out_bf, one))
+            log(f"  bf16 round ({len(plan_bf.buckets)} csr_round launches and the row gathers "
+                f"around them) {ms_bf:.4f} ms")
+            del out_bf, plan_bf
+    return res
+
+
+def gnn_zoo_phase(torch, np, dev) -> dict:
+    """Phase 15 (c): GAT at ``full_graph_sm`` and ``ogb_products``; SAGE
+    (the configs of ``gat-cora`` and ``gcn-cora``) at ``minibatch_lg``,
+    sampled from ``erdos_renyi`` with B4 at both hops held to its plain
+    version; DimeNet and MeshGraphNet at ``molecule``, MeshGraphNet at
+    ``minibatch_lg``'s padded union sizes.  Every output finite; at
+    ``full_graph_sm`` and ``molecule`` held to the same module on the CPU
+    at ``MODEL_TOL``; each forward timed.  Returns B4's launches and error."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import cells, dimenet, gat_cora, gcn_cora, meshgraphnet
+    from repro_torch.configs.cells import pad512
+    from repro_torch.data.graphs import mesh_rollout_batch, molecule_batch
+    from repro_torch.graph.sampler import CSRAdjacency, NeighborSampler, relabel_to_local
+    from repro_torch.graph.structures import erdos_renyi
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.segment_reduce import csr_aggregate_op, csr_aggregate_ref
+    from repro_torch.models import gnn
+
+    res = {"b4": 0, "b4_err": 0.0}
+
+    def on_card_and_cpu(name, model_cpu, *args):
+        """The forward on the card (no kernel launch), held to the CPU; timed."""
+        model = copy.deepcopy(model_cpu).to(dev)
+        dargs = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        reset_launch_counts()
+        got = model(*dargs)
+        torch.cuda.synchronize()
+        if sum(launch_counts().values()):
+            fail(f"{name}: launched {launch_counts()}, expected no kernel of the port")
+        same_as_cpu(np, name, got, model_cpu(*args))
+        log(f"    forward {event_median_ms(torch, lambda: model(*dargs)):.4f} ms "
+            f"(median of {ZOO_ITERS})")
+
+    def finite(name, out, shape):
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            fail(f"{name}: output {tuple(out.shape)} (expected {shape}) or non-finite values")
+
+    with SubPhase(torch, "GAT full_graph_sm"):
+        sh = cells.GNN_SHAPES["full_graph_sm"]
+        n, e = pad512(sh["n_nodes"]), pad512(sh["n_edges"])
+        cfg = dataclasses.replace(gat_cora.FULL, d_feat=sh["d_feat"], n_classes=sh["n_classes"])
+        g = erdos_renyi(n, e, seed=0, device=dev)
+        feats = np.random.default_rng(0).normal(0, 1, (n, sh["d_feat"])).astype(np.float32)
+        model = gnn.GAT(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        log(f"  GAT {cfg.name} at full_graph_sm: {n} nodes, {e} edges (erdos_renyi, seed 0)")
+        on_card_and_cpu("GAT full_graph_sm logits", model, torch.from_numpy(feats),
+                        torch.from_numpy(g.src), torch.from_numpy(g.dst))
+
+    with SubPhase(torch, "GAT ogb_products"):
+        sh = cells.GNN_SHAPES["ogb_products"]
+        n, e = pad512(sh["n_nodes"]), pad512(sh["n_edges"])
+        cfg = dataclasses.replace(gat_cora.FULL, d_feat=sh["d_feat"], n_classes=sh["n_classes"])
+        t0 = time.perf_counter()
+        g = erdos_renyi(n, e, seed=0, device=dev)
+        src, dst = (torch.from_numpy(a).to(dev) for a in (g.src, g.dst))
+        del g
+        torch.cuda.synchronize()
+        log(f"  GAT at ogb_products: erdos_renyi({n}, {e}, seed=0) built in "
+            f"{time.perf_counter() - t0:.1f} s (numpy draws on the host, the sort on the card)")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        feats = torch.randn((n, sh["d_feat"]), generator=gen, device=dev)
+        model = gnn.GAT(cfg, generator=gen, device=dev)
+        reset_launch_counts()
+        out = model(feats, src, dst)
+        torch.cuda.synchronize()
+        finite("GAT ogb_products logits", out, (n, sh["n_classes"]))
+        ms = event_median_ms(torch, lambda: model(feats, src, dst), iters=3)
+        log(f"    logits {tuple(out.shape)} finite; forward {ms:.4f} ms (median of 3; "
+            f"messages added in chunks of {gnn.GAT_EDGE_CHUNK} edges)")
+        del out, feats, src, dst, model
+
+    with SubPhase(torch, "SAGE minibatch_lg"):
+        sh = cells.GNN_SHAPES["minibatch_lg"]
+        t0 = time.perf_counter()
+        g = erdos_renyi(sh["n_nodes"], sh["n_edges"], seed=0, device=dev)
+        adj = CSRAdjacency.from_edgelist(g, device=dev)
+        del g
+        t_graph = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sampler = NeighborSampler(adj, sh["fanouts"], seed=0)
+        seeds = np.random.default_rng(0).choice(sh["n_nodes"], sh["batch_nodes"], replace=False)
+        all_nodes, hops_np = relabel_to_local(sampler.sample(seeds))
+        t_sample = time.perf_counter() - t0
+        del adj, sampler
+        u = int(all_nodes.shape[0])
+        log(f"  erdos_renyi({sh['n_nodes']}, {sh['n_edges']}, seed=0) and its CSR adjacency in "
+            f"{t_graph:.1f} s; NeighborSampler fanouts {tuple(sh['fanouts'])} from "
+            f"{sh['batch_nodes']} seeds in {t_sample:.2f} s: {u} nodes (the cell pads to "
+            f"{cells._union_sizes(sh)[0]}), hops "
+            + ", ".join(f"{h[1].shape[0]}x{h[1].shape[1]}" for h in hops_np))
+        hops = [tuple(torch.from_numpy(x).to(dev) for x in h) for h in hops_np]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        feats = torch.randn((u, sh["d_feat"]), generator=gen, device=dev)
+        real_op = gnn.csr_aggregate_op
+        for arch, cfg0 in (("gat-cora", gat_cora.FULL), ("gcn-cora", gcn_cora.FULL)):
+            is_gat = arch == "gat-cora"
+            scfg = gnn.SageConfig(
+                name=cfg0.name, d_feat=sh["d_feat"],
+                d_hidden=max(cfg0.d_hidden * (cfg0.n_heads if is_gat else 1), 64),
+                n_classes=sh["n_classes"], fanouts=tuple(sh["fanouts"]))
+            model = gnn.SAGE(scfg, generator=gen, device=dev)
+            calls = []
+
+            def recording(nbr, wgt, F, **kw):  # keeps each hop's operands for the B4 gate
+                calls.append((nbr, wgt, F))
+                return real_op(nbr, wgt, F, **kw)
+
+            gnn.csr_aggregate_op = recording
+            reset_launch_counts()
+            try:
+                logits = model(feats, hops)
+                torch.cuda.synchronize()
+            finally:
+                gnn.csr_aggregate_op = real_op
+            counts = launch_counts()
+            if counts["csr_aggregate"] != len(hops) or sum(counts.values()) != len(hops):
+                fail(f"SAGE {arch}: launched {counts}, expected {len(hops)} csr_aggregate")
+            res["b4"] += counts["csr_aggregate"]
+            finite(f"SAGE {arch} logits", logits, (sh["batch_nodes"], sh["n_classes"]))
+            for k, (nbr, wgt, F) in enumerate(calls):
+                tag = (f"csr_aggregate SAGE {arch} hop {len(calls) - 1 - k} "
+                       f"({nbr.shape[0]}x{nbr.shape[1]}, S={F.shape[1]})")
+                res["b4_err"] = max(res["b4_err"], check_close(
+                    np, tag, csr_aggregate_op(nbr, wgt, F), csr_aggregate_ref(nbr, wgt, F),
+                    F32_TOL))
+                log(f"    kernel {event_median_ms(torch, lambda: csr_aggregate_op(nbr, wgt, F)):.4f}"
+                    f" ms, plain {event_median_ms(torch, lambda: csr_aggregate_ref(nbr, wgt, F)):.4f}"
+                    " ms")
+            model.use_kernel = False
+            check_close(np, f"SAGE {arch} logits, kernel path vs plain path", logits,
+                        model(feats, hops), F32_TOL)
+            model.use_kernel = True
+            log(f"    SAGE {arch} (d_hidden {scfg.d_hidden}) forward "
+                f"{event_median_ms(torch, lambda: model(feats, hops)):.4f} ms")
+        del feats, hops, calls, logits, model
+
+    with SubPhase(torch, "DimeNet molecule"):
+        sh = cells.GNN_SHAPES["molecule"]
+        b = molecule_batch(sh["batch"], nodes_per=sh["n_nodes"], edges_per=sh["n_edges"], seed=0)
+        n = int(b["z"].shape[0])
+        cap = 4 * pad512(sh["n_edges"] * sh["batch"] * 2)
+        kj, ji, mask = gnn.build_triplets(b["src"], b["dst"], n, max_triplets=cap)
+        log(f"  DimeNet FULL at molecule: molecule_batch({sh['batch']}): {n} nodes, "
+            f"{b['src'].shape[0]} edges, {int(mask.sum())} triplets padded to the cell's {cap}")
+        model = gnn.DimeNet(dimenet.FULL, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+        args = [torch.from_numpy(a) for a in (b["z"], b["pos"], b["src"], b["dst"], kj, ji,
+                                              mask, b["graph_ids"])]
+        on_card_and_cpu("DimeNet molecule energies", model, *args, sh["batch"])
+
+    with SubPhase(torch, "MeshGraphNet molecule and minibatch_lg"):
+        mol = cells.GNN_SHAPES["molecule"]
+        for shape, (n, e) in (
+            ("molecule", (pad512(mol["n_nodes"] * mol["batch"]),
+                          pad512(mol["n_edges"] * mol["batch"] * 2))),
+            ("minibatch_lg", tuple(pad512(x) for x in cells._union_sizes(
+                cells.GNN_SHAPES["minibatch_lg"]))),
+        ):
+            b = mesh_rollout_batch(n, e, seed=0)
+            args = [torch.from_numpy(b[k]) for k in ("node_feat", "edge_feat", "src", "dst")]
+            model = gnn.MeshGraphNet(meshgraphnet.FULL, generator=torch.Generator().manual_seed(0),
+                                     device="cpu")
+            log(f"  MeshGraphNet FULL at {shape}: mesh_rollout_batch({n}, {e})")
+            if shape == "molecule":
+                on_card_and_cpu(f"MeshGraphNet {shape} outputs", model, *args)
+                continue
+            model = model.to(dev)
+            dargs = [a.to(dev) for a in args]
+            out = model(*dargs)
+            torch.cuda.synchronize()
+            finite(f"MeshGraphNet {shape} outputs", out, (n, meshgraphnet.FULL.d_out))
+            log(f"    outputs {tuple(out.shape)} finite; forward "
+                f"{event_median_ms(torch, lambda: model(*dargs)):.4f} ms")
+    return res
+
+
+def zoo_phase(torch, np, dev) -> dict:
+    """Phase 15: (a) ``dhlp-bio`` at ``DHLP_SCALES`` in f32, (b) its bf16
+    step at the first, (c) the GNN zoo.  Returns B3's and B4's launches on
+    these paths and their errors."""
+    smi = smi_name_and_limit()
+    out = {"b3": 0, "b3_err": 0.0}
+    for i, shape in enumerate(DHLP_SCALES):
+        log(f"== phase 15 (a{', b' if i == 0 else ''}): dhlp-bio at {shape} ({smi})")
+        r = dhlp_bio_phase(torch, np, dev, shape, bf16=(i == 0))
+        out["b3"] += r["b3"]
+        out["b3_err"] = max(out["b3_err"], r["err"])
+        out[shape] = r
+    log(f"== phase 15 (c): the GNN zoo at FULL width ({smi})")
+    out.update(gnn_zoo_phase(torch, np, dev))
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2724,13 +3226,22 @@ def main() -> int:
     del res_k, dhlp1_main
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s")
 
+    # ------ 15. dhlp-bio at the paper's scales and the GNN zoo (run before
+    # the kernel list of phase 14, which counts their launches)
+    t0 = time.perf_counter()
+    zoo = zoo_phase(torch, np, dev)
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+
     # ------------------------------------------------ 14. the kernel list
     log("== phase 14: kernels")
     counts["csr_round_residual"] += entry["serve_b1"] + tuned["b1"]
     b1_err = max(b1_err, entry["b1_err"], tuned["b1_err"])
-    b3_err = max(b3_err, tuned["b3_err"])
-    counts["csr_round"] = legacy_counts["csr_round"] + entry["b3"] + tuned["b3"]
-    counts["csr_aggregate"] = gcn_counts["csr_aggregate"]
+    b3_err = max(b3_err, tuned["b3_err"], zoo["b3_err"])
+    b4["err"] = max(b4["err"], zoo["b4_err"])
+    if zoo["b3"] <= 0 or zoo["b4"] <= 0:
+        fail(f"phase 15 launched csr_round {zoo['b3']} and csr_aggregate {zoo['b4']} times")
+    counts["csr_round"] = legacy_counts["csr_round"] + entry["b3"] + tuned["b3"] + zoo["b3"]
+    counts["csr_aggregate"] = gcn_counts["csr_aggregate"] + zoo["b4"]
     counts["embedding_bag"] = wd_counts["embedding_bag"]
     counts["flash_attention"] = serving["launches"]
     for name, cnt in counts.items():
@@ -2819,7 +3330,7 @@ def main() -> int:
     log(f"  total {time.perf_counter() - t_script:.1f} s")
     print(smi_name_and_limit(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    # ----------------------------------------------------- 15. the result
+    # ----------------------------------------------------- 16. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

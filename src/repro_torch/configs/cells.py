@@ -1,16 +1,50 @@
-"""The shapes of the LM, GCN and Wide & Deep cells, from ``repro.configs.cells``.
+"""Cells, (architecture × input shape) units, from ``repro.configs.cells``.
 
-Only the shape tables, the LM cache-length rule and ``pad512``: the
-``ArchSpec`` registry and the dry-run ``Cell`` machinery wait for the
-slice that ports ``launch/``.
+A :class:`Cell` names a step function and stand-ins for its positional
+inputs (:class:`TensorSpec`, the port's ``jax.ShapeDtypeStruct``: a shape
+and a dtype, nothing allocated).  Here are the shape tables of the LM,
+GNN and recsys cells, the LM cache-length rule, ``pad512`` and the
+sampled cells' padded union sizes.  The builders of the train, prefill,
+decode and serve cells (``lm_cell``, ``gnn_cell``, ``recsys_cell``) are
+not ported: they build training steps (ROADMAP A.9.4) or feed the dry run
+(A.9.5).  The ``dhlp-bio`` cells are built in :mod:`.dhlp_bio`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.models.gnn import GCNConfig
 from repro_torch.models.transformer import TransformerConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """The shape and dtype of one step input (``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def sds(shape, dtype: torch.dtype) -> TensorSpec:
+    return TensorSpec(tuple(int(x) for x in shape), dtype)
+
+
+@dataclasses.dataclass
+class Cell:
+    """One (arch × shape) unit: a step and its inputs' specs."""
+
+    arch: str
+    shape: str
+    kind: str  # train|prefill|decode|serve
+    step_fn: Callable  # positional-argument step function
+    input_specs: Tuple[Any, ...]  # TensorSpecs, positional
+    donate: Tuple[int, ...] = ()
+    skip_reason: Optional[str] = None  # set => the cell is a noted skip
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def pad512(x: int) -> int:
@@ -65,6 +99,15 @@ RECSYS_SHAPES = {
 }
 
 
+def _union_sizes(sh) -> Tuple[int, int]:
+    """Padded union-subgraph sizes ``(nodes, edges)`` of a sampled cell."""
+    b = sh["batch_nodes"]
+    f1, f2 = sh["fanouts"]
+    nodes = b * (1 + f1 + f1 * f2)
+    edges = b * f1 + b * f1 * f2
+    return nodes, edges
+
+
 def gcn_at_shape(cfg: GCNConfig, shape_name: str) -> GCNConfig:
     """The config at a full-graph shape's widths (``d_feat``, classes),
     as the reference's ``_spmm_family_cell`` replaces them."""
@@ -72,4 +115,14 @@ def gcn_at_shape(cfg: GCNConfig, shape_name: str) -> GCNConfig:
     return dataclasses.replace(cfg, d_feat=sh["d_feat"], n_classes=sh["n_classes"])
 
 
-__all__ = ["GNN_SHAPES", "LM_SHAPES", "RECSYS_SHAPES", "gcn_at_shape", "lm_cache_len", "pad512"]
+__all__ = [
+    "Cell",
+    "GNN_SHAPES",
+    "LM_SHAPES",
+    "RECSYS_SHAPES",
+    "TensorSpec",
+    "gcn_at_shape",
+    "lm_cache_len",
+    "pad512",
+    "sds",
+]

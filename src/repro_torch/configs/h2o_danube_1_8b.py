@@ -5,6 +5,7 @@ vocab=32000, llama+mistral mix with sliding-window attention.
 
 import torch
 
+from repro_torch.configs.registry import ArchSpec, cell_not_ported
 from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
@@ -31,3 +32,16 @@ REDUCED = TransformerConfig(
 )
 
 SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="h2o-danube-1.8b",
+        family="lm",
+        full_config=FULL,
+        reduced_config=REDUCED,
+        shapes=SHAPES,
+        make_cell=cell_not_ported("h2o-danube-1.8b"),
+        make_probe_cell=cell_not_ported("h2o-danube-1.8b"),
+        source="arXiv:2401.16818; hf",
+    )

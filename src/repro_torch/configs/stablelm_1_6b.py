@@ -5,6 +5,7 @@ copy of ``repro.configs.stablelm_1_6b``.
 
 import torch
 
+from repro_torch.configs.registry import ArchSpec, cell_not_ported
 from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
@@ -29,3 +30,16 @@ REDUCED = TransformerConfig(
 )
 
 SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="stablelm-1.6b",
+        family="lm",
+        full_config=FULL,
+        reduced_config=REDUCED,
+        shapes=SHAPES,
+        make_cell=cell_not_ported("stablelm-1.6b"),
+        make_probe_cell=cell_not_ported("stablelm-1.6b"),
+        source="hf:stabilityai/stablelm-2-1_6b; unverified",
+    )

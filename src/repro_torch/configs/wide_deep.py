@@ -3,6 +3,7 @@ concat interaction.  [arXiv:1606.07792]  The port's copy of
 ``repro.configs.wide_deep``.
 """
 
+from repro_torch.configs.registry import ArchSpec, cell_not_ported
 from repro_torch.models.recsys import WideDeepConfig
 
 FULL = WideDeepConfig(
@@ -22,3 +23,15 @@ REDUCED = WideDeepConfig(
     mlp_dims=(32, 16),
 )
 SHAPES = ["train_batch", "serve_p99", "serve_bulk", "retrieval_cand"]
+
+
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="wide-deep",
+        family="recsys",
+        full_config=FULL,
+        reduced_config=REDUCED,
+        shapes=SHAPES,
+        make_cell=cell_not_ported("wide-deep"),
+        source="arXiv:1606.07792; paper",
+    )

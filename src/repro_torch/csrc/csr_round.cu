@@ -16,7 +16,10 @@
 // operation count is the larger term (see PERF.md).
 //
 // Design: the inner loop of csr_round_common.cuh (live row lengths, a warp
-// per row, lane vectors of columns, warp-shuffle broadcast of nbr/wgt).
+// per row, lane vectors of columns, warp-shuffle broadcast of nbr/wgt),
+// with its compensated row sum: the dhlp-bio step gives B3 rows of 110 k
+// (scale_1m) to 2 M (scale_20m) live slots, where a plain running f32 sum
+// misses the f32 gate.
 // The legacy block-rows layout pads every row of a 64-row block to the
 // block's widest row (2.86 slots per nonzero on the LP path); with live
 // lengths a row stops after its last nonzero and adds one pad slot.
@@ -43,7 +46,7 @@ int run(const void* nbr, const void* wgt, const void* live, const void* F,
                           static_cast<T*>(out),
                           nullptr,
                           M, D, S, rows_per_block, c};
-  return static_cast<int>(csr_round::launch<T, T, false, kMaxWarps>(a, vec, st));
+  return static_cast<int>(csr_round::launch<T, T, false, kMaxWarps, true>(a, vec, st));
 }
 
 }  // namespace

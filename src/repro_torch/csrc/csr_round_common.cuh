@@ -30,6 +30,12 @@
 // - Each output element is summed in slot order by one lane, as the
 //   previous kernels and the plain version's per-slot order do; no atomics,
 //   so two launches give byte-identical results.
+// - kCompensated (B3): each 32-slot chunk is summed into a fresh partial
+//   and the partials are added into the row's sum with Kahan compensation.
+//   A plain running f32 sum over one row drifts with the row's length: at
+//   110,134 slots (dhlp-bio scale_1m, a hub row) it was 2e-4 of the sum
+//   off an f64 sum, past the f32 gate; chunked and compensated, the error
+//   no longer grows with the row.  Three adds per chunk and lane.
 // - No F rows are staged in shared memory.  Copying the fused plan's
 //   most-named rows (its permuted ids 0..H-1) into shared memory per block
 //   was measured slower at every H tried (H = 128, 256, 384; PERF.md): the
@@ -139,8 +145,9 @@ __device__ __forceinline__ void slot_group(const T* __restrict__ Fcol, int S,
 
 // One row's sum for the lane's VEC columns, in slot order, then the pad.
 // Fcol points at the lane's first column (a lane past S reads column 0 and
-// its sums are never stored).
-template <typename T, int VEC>
+// its sums are never stored).  kCompensated: 32-slot partials added with
+// Kahan compensation (see the header).
+template <typename T, int VEC, bool kCompensated>
 __device__ __forceinline__ void row_sum(const int* __restrict__ nrow,
                                         const T* __restrict__ wrow, int n_live,
                                         int D, const T* __restrict__ Fcol,
@@ -149,6 +156,9 @@ __device__ __forceinline__ void row_sum(const int* __restrict__ nrow,
   constexpr int kDepth = L::kDepth;
   int next_id = 0;
   float next_w = 0.0f;
+  float comp[VEC];  // minus what the row's sum has lost so far (Kahan)
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) comp[v] = 0.0f;
   if (lane < n_live) {
     next_id = nrow[lane];
     next_w = to_f32(wrow[lane]);
@@ -161,9 +171,23 @@ __device__ __forceinline__ void row_sum(const int* __restrict__ nrow,
       next_id = nrow[k0 + kWarp + lane];
       next_w = to_f32(wrow[k0 + kWarp + lane]);
     }
+    float part[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) part[v] = kCompensated ? 0.0f : acc[v];
     int j = 0;
-    for (; j + kDepth <= kn; j += kDepth) slot_group<T, VEC, true>(Fcol, S, my_id, my_w, j, kn, acc);
-    if (j < kn) slot_group<T, VEC, false>(Fcol, S, my_id, my_w, j, kn, acc);
+    for (; j + kDepth <= kn; j += kDepth) slot_group<T, VEC, true>(Fcol, S, my_id, my_w, j, kn, part);
+    if (j < kn) slot_group<T, VEC, false>(Fcol, S, my_id, my_w, j, kn, part);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      if constexpr (kCompensated) {
+        const float y = part[v] - comp[v];
+        const float t = acc[v] + y;
+        comp[v] = (t - acc[v]) - y;
+        acc[v] = t;
+      } else {
+        acc[v] = part[v];
+      }
+    }
   }
   if (n_live < D) {
     // the first pad, weight 0: adds nothing but a NaN or Inf of its F row
@@ -175,7 +199,7 @@ __device__ __forceinline__ void row_sum(const int* __restrict__ nrow,
 
 // kMaxWarps: warps per block at most (min(rows_per_block, kMaxWarps) run);
 // it also sets the register budget through __launch_bounds__.
-template <typename T, typename Out, int VEC, bool kResidual, int kMaxWarps>
+template <typename T, typename Out, int VEC, bool kResidual, int kMaxWarps, bool kCompensated>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
     round_kernel(const Args<T, Out> a) {
   constexpr int kTile = kWarp * VEC;  // columns per block
@@ -196,7 +220,7 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
     float acc[VEC];
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
-    row_sum<T, VEC>(a.nbr + static_cast<size_t>(r) * a.D,
+    row_sum<T, VEC, kCompensated>(a.nbr + static_cast<size_t>(r) * a.D,
                     a.wgt + static_cast<size_t>(r) * a.D, n_live, a.D,
                     a.F + (on ? col : 0), a.S, lane, acc);
     if (on) {
@@ -233,7 +257,7 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
   }
 }
 
-template <typename T, typename Out, int VEC, bool kResidual, int kMaxWarps>
+template <typename T, typename Out, int VEC, bool kResidual, int kMaxWarps, bool kCompensated>
 cudaError_t launch_vec(const Args<T, Out>& a, cudaStream_t st) {
   const int warps = a.rows_per_block < kMaxWarps ? a.rows_per_block : kMaxWarps;
   const int tile = kWarp * VEC;
@@ -241,20 +265,22 @@ cudaError_t launch_vec(const Args<T, Out>& a, cudaStream_t st) {
   const size_t smem = kResidual ? static_cast<size_t>(warps) * tile * sizeof(float) : 0;
   const dim3 grid((a.M + a.rows_per_block - 1) / a.rows_per_block,
                   (a.S + tile - 1) / tile);
-  round_kernel<T, Out, VEC, kResidual, kMaxWarps><<<grid, warps * kWarp, smem, st>>>(a);
+  round_kernel<T, Out, VEC, kResidual, kMaxWarps, kCompensated>
+      <<<grid, warps * kWarp, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 // vec: columns per lane, chosen by the caller from S and F's alignment
-template <typename T, typename Out, bool kResidual, int kMaxWarps>
+template <typename T, typename Out, bool kResidual, int kMaxWarps, bool kCompensated = false>
 cudaError_t launch(const Args<T, Out>& a, int vec, cudaStream_t st) {
   if (a.rows_per_block < 1) return cudaErrorInvalidValue;
   switch (vec) {
-    case 1: return launch_vec<T, Out, 1, kResidual, kMaxWarps>(a, st);
-    case 2: return launch_vec<T, Out, 2, kResidual, kMaxWarps>(a, st);
-    case 4: return launch_vec<T, Out, 4, kResidual, kMaxWarps>(a, st);
+    case 1: return launch_vec<T, Out, 1, kResidual, kMaxWarps, kCompensated>(a, st);
+    case 2: return launch_vec<T, Out, 2, kResidual, kMaxWarps, kCompensated>(a, st);
+    case 4: return launch_vec<T, Out, 4, kResidual, kMaxWarps, kCompensated>(a, st);
     case 8:
-      if constexpr (sizeof(T) * 8 <= 16) return launch_vec<T, Out, 8, kResidual, kMaxWarps>(a, st);
+      if constexpr (sizeof(T) * 8 <= 16)
+        return launch_vec<T, Out, 8, kResidual, kMaxWarps, kCompensated>(a, st);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }

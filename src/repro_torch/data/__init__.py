@@ -1,8 +1,13 @@
-"""Synthetic datasets: the drug–disease–target gold standard, the
-planted-partition graphs of the GCN and the CTR batches of Wide & Deep."""
+"""Synthetic datasets: the drug–disease–target gold standard, the graphs
+of the GNNs and the CTR batches of Wide & Deep."""
 
 from repro_torch.data.drugnet import DrugNet, DrugNetSpec, make_drugnet
-from repro_torch.data.graphs import NodeClassificationData, planted_partition_graph
+from repro_torch.data.graphs import (
+    NodeClassificationData,
+    mesh_rollout_batch,
+    molecule_batch,
+    planted_partition_graph,
+)
 from repro_torch.data.recsys import CTRDataConfig, sample_ctr_batch
 
 __all__ = [
@@ -11,6 +16,8 @@ __all__ = [
     "DrugNetSpec",
     "NodeClassificationData",
     "make_drugnet",
+    "mesh_rollout_batch",
+    "molecule_batch",
     "planted_partition_graph",
     "sample_ctr_batch",
 ]

@@ -1,17 +1,20 @@
-"""Graph dataset generator for the GCN: planted-partition node classification.
+"""Graph dataset generators for the GNNs.
 
-The port's copy of ``repro.data.graphs.planted_partition_graph`` — the
-same numpy draws in the same order, so the same seed gives the same
-arrays.  Two steps are reorganised for size, not for result: the
-same-class destination draws group the edges by class once (one stable
-sort) instead of rescanning all edges for each class, and the
-deduplication of ``symmetrized`` runs as torch ops on ``device``.
-``molecule_batch`` and ``mesh_rollout_batch`` wait for their models.
+The port's copies of ``repro.data.graphs``: ``planted_partition_graph``
+(the GCN's node classification), ``molecule_batch`` (DimeNet's batched 3D
+molecules) and ``mesh_rollout_batch`` (MeshGraphNet's dynamics snapshot),
+each with the same numpy draws in the same order, so the same seed gives
+the same arrays.  Two steps of ``planted_partition_graph`` are
+reorganised for size, not for result: the same-class destination draws
+group the edges by class once (one stable sort) instead of rescanning all
+edges for each class, and the deduplication of ``symmetrized`` runs as
+torch ops on ``device``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import numpy as np
 
@@ -71,4 +74,68 @@ def planted_partition_graph(
     )
 
 
-__all__ = ["NodeClassificationData", "planted_partition_graph"]
+def molecule_batch(
+    batch: int,
+    nodes_per: int = 30,
+    edges_per: int = 64,
+    n_species: int = 16,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Batched random 3D molecules (a disjoint union) and planted energies."""
+    rng = np.random.default_rng(seed)
+    n = batch * nodes_per
+    z = rng.integers(0, n_species, n).astype(np.int32)
+    pos = rng.normal(0, 1.5, (n, 3)).astype(np.float32)
+    src_l, dst_l = [], []
+    for g in range(batch):
+        off = g * nodes_per
+        # a chain both ways plus random extra bonds
+        a = np.arange(nodes_per - 1)
+        s = np.concatenate([a, a + 1])
+        d = np.concatenate([a + 1, a])
+        extra = edges_per - len(s)
+        if extra > 0:
+            es = rng.integers(0, nodes_per, extra)
+            ed = rng.integers(0, nodes_per, extra)
+            s = np.concatenate([s, es])
+            d = np.concatenate([d, ed])
+        src_l.append(s[:edges_per] + off)
+        dst_l.append(d[:edges_per] + off)
+    src = np.concatenate(src_l).astype(np.int32)
+    dst = np.concatenate(dst_l).astype(np.int32)
+    graph_ids = np.repeat(np.arange(batch, dtype=np.int32), nodes_per)
+    # planted target: a smooth function of species and geometry
+    per_node = np.sin(z).astype(np.float32) + 0.1 * np.linalg.norm(pos, axis=-1)
+    targets = np.zeros(batch, np.float32)
+    np.add.at(targets, graph_ids, per_node)
+    return {"z": z, "pos": pos, "src": src, "dst": dst, "graph_ids": graph_ids,
+            "targets": targets}
+
+
+def mesh_rollout_batch(
+    n_nodes: int,
+    n_edges: int,
+    d_node: int = 8,
+    d_edge: int = 4,
+    d_out: int = 3,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """MeshGraphNet-style dynamics snapshot with a learnable local rule."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, n_edges).astype(np.int32)
+    node_feat = rng.normal(0, 1, (n_nodes, d_node)).astype(np.float32)
+    edge_feat = rng.normal(0, 1, (n_edges, d_edge)).astype(np.float32)
+    # target: a linear function of own and mean-neighbour features
+    agg = np.zeros((n_nodes, d_node), np.float32)
+    np.add.at(agg, dst, node_feat[src])
+    deg = np.maximum(np.bincount(dst, minlength=n_nodes), 1)[:, None]
+    w1 = rng.normal(0, 0.5, (d_node, d_out))
+    w2 = rng.normal(0, 0.5, (d_node, d_out))
+    targets = (node_feat @ w1 + (agg / deg) @ w2).astype(np.float32)
+    return {"node_feat": node_feat, "edge_feat": edge_feat, "src": src, "dst": dst,
+            "targets": targets}
+
+
+__all__ = ["NodeClassificationData", "mesh_rollout_batch", "molecule_batch",
+           "planted_partition_graph"]

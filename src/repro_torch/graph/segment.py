@@ -46,6 +46,15 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     return init.scatter_reduce_(0, _expand(segment_ids, data), data, reduce="amax")
 
 
+def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-segment min; ``+inf`` (an integer type's largest value) for an
+    empty segment (JAX's identity)."""
+    top = float("inf") if data.dtype.is_floating_point else torch.iinfo(data.dtype).max
+    init = torch.full((num_segments,) + tuple(data.shape[1:]), top, dtype=data.dtype,
+                      device=data.device)
+    return init.scatter_reduce_(0, _expand(segment_ids, data), data, reduce="amin")
+
+
 def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Numerically stable softmax within each segment (GAT edge softmax)."""
     ids = segment_ids.long()
@@ -105,6 +114,7 @@ __all__ = [
     "scatter_spmm",
     "segment_max",
     "segment_mean",
+    "segment_min",
     "segment_softmax",
     "segment_sum",
 ]

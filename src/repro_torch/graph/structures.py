@@ -1,7 +1,8 @@
-"""Graph containers: COO edge lists and padded CSR.
+"""Graph containers and generators: COO edge lists and padded CSR.
 
-The port's copy of ``repro.graph.structures``, with the methods the GCN
-path uses: the same dataclasses over the same numpy arrays, bit for bit.
+The port's copy of ``repro.graph.structures``: the same dataclasses over
+the same numpy arrays, and the same generators (``erdos_renyi``,
+``powerlaw_graph``: the same numpy draws), bit for bit.
 
 * ``EdgeList`` (COO) is the exchange format, stored destination-major so
   segment reductions see sorted ids.
@@ -15,7 +16,8 @@ The heavy steps (the stable sort by destination, the deduplication of
 ``device`` (``cuda:0`` unless the caller asks for the CPU): at
 ``ogb_products`` size (126 M edges) numpy's sort takes minutes on the
 host.  A stable sort gives the same order on any device, so the arrays
-are those of the reference.
+are those of the reference.  The generators draw on the host with numpy
+and sort on ``device``.
 """
 
 from __future__ import annotations
@@ -66,6 +68,16 @@ class EdgeList:
         return self.w
 
     # ----------------------------------------------------------- transforms
+    def sorted_by_dst(self, device: DeviceLike = None) -> "EdgeList":
+        """The edges in stable destination order (the sort on ``device``)."""
+        dev = resolve_device(device)
+        src, dst = _to(dev, self.src, self.dst)
+        order = torch.sort(dst, stable=True).indices
+        w = None if self.w is None else _host(_to(dev, self.w)[0][order])
+        return EdgeList(
+            src=_host(src[order]), dst=_host(dst[order]), w=w, num_nodes=self.num_nodes
+        )
+
     def symmetrized(self, device: DeviceLike = None) -> "EdgeList":
         """Add reverse edges (deduplicated; the first copy of a pair wins)."""
         src, dst, w = _to(resolve_device(device), self.src, self.dst, self.weights())
@@ -90,6 +102,26 @@ class EdgeList:
             num_nodes=self.num_nodes,
         )
 
+    def pad_to_multiple(self, mult: int) -> "EdgeList":
+        """Pad with zero-weight self-loops on node 0 (shard-friendly shapes)."""
+        e = self.num_edges
+        target = ((e + mult - 1) // mult) * mult if e else mult
+        pad = target - e
+        if pad == 0 and self.w is not None:
+            return self
+        return EdgeList(
+            src=np.concatenate([self.src, np.zeros(pad, np.int32)]),
+            dst=np.concatenate([self.dst, np.zeros(pad, np.int32)]),
+            w=np.concatenate([self.weights(), np.zeros(pad, np.float32)]),
+            num_nodes=self.num_nodes,
+        )
+
+    def out_degrees(self) -> np.ndarray:
+        return np.bincount(self.src, minlength=self.num_nodes)
+
+    def in_degrees(self) -> np.ndarray:
+        return np.bincount(self.dst, minlength=self.num_nodes)
+
     # ------------------------------------------------------------- builders
     @classmethod
     def from_dense(cls, A: np.ndarray) -> "EdgeList":
@@ -106,6 +138,9 @@ class EdgeList:
         A = np.zeros((self.num_nodes, self.num_nodes), dtype=np.float32)
         np.add.at(A, (self.dst, self.src), self.weights())
         return A
+
+    def to_padded_csr(self, max_deg: Optional[int] = None, device: DeviceLike = None) -> "PaddedCSR":
+        return PaddedCSR.from_edgelist(self, max_deg=max_deg, device=device)
 
 
 def padded_csr_tensors(
@@ -163,4 +198,39 @@ class PaddedCSR:
         return cls(nbr=_host(nbr), wgt=_host(wgt), deg=_host(deg), num_nodes=edges.num_nodes)
 
 
-__all__ = ["EdgeList", "PaddedCSR", "padded_csr_tensors"]
+def erdos_renyi(
+    num_nodes: int,
+    num_edges: int,
+    seed: int = 0,
+    weighted: bool = True,
+    device: DeviceLike = None,
+) -> EdgeList:
+    """Random graph with exactly ``num_edges`` directed edges (repeats kept
+    raw), in destination order."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, num_nodes, size=num_edges, dtype=np.int32)
+    dst = rng.integers(0, num_nodes, size=num_edges, dtype=np.int32)
+    w = rng.random(num_edges).astype(np.float32) if weighted else None
+    return EdgeList(src=src, dst=dst, w=w, num_nodes=num_nodes).sorted_by_dst(device)
+
+
+def powerlaw_graph(
+    num_nodes: int,
+    num_edges: int,
+    exponent: float = 2.1,
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> EdgeList:
+    """Degree-skewed graph (realistic for biological/social networks): both
+    endpoints drawn with probability ∝ rank^(-exponent/2), node 0 the most
+    likely; in destination order."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, num_nodes + 1, dtype=np.float64)
+    probs = ranks ** (-exponent / 2.0)
+    probs /= probs.sum()
+    src = rng.choice(num_nodes, size=num_edges, p=probs).astype(np.int32)
+    dst = rng.choice(num_nodes, size=num_edges, p=probs).astype(np.int32)
+    return EdgeList(src=src, dst=dst, w=None, num_nodes=num_nodes).sorted_by_dst(device)
+
+
+__all__ = ["EdgeList", "PaddedCSR", "erdos_renyi", "padded_csr_tensors", "powerlaw_graph"]

@@ -1,7 +1,22 @@
-"""The port's models: GCN full-graph inference, Wide & Deep serving and
-transformer serving (GQA, dense FFN)."""
+"""The port's models: the GNN zoo (GCN, GAT, DimeNet, MeshGraphNet, SAGE)
+inference, Wide & Deep serving and transformer serving (GQA, dense FFN)."""
 
-from repro_torch.models.gnn import GCN, GCNConfig, gcn_adjacency, gcn_adjacency_live, gcn_forward
+from repro_torch.models.gnn import (
+    GAT,
+    GCN,
+    SAGE,
+    DimeNet,
+    DimeNetConfig,
+    GATConfig,
+    GCNConfig,
+    MeshGraphNet,
+    MGNConfig,
+    SageConfig,
+    build_triplets,
+    gcn_adjacency,
+    gcn_adjacency_live,
+    gcn_forward,
+)
 from repro_torch.models.recsys import (
     WideDeep,
     WideDeepConfig,
@@ -17,12 +32,21 @@ from repro_torch.models.transformer import (
 )
 
 __all__ = [
+    "DimeNet",
+    "DimeNetConfig",
+    "GAT",
+    "GATConfig",
     "GCN",
     "GCNConfig",
+    "MGNConfig",
+    "MeshGraphNet",
+    "SAGE",
+    "SageConfig",
     "Transformer",
     "TransformerConfig",
     "WideDeep",
     "WideDeepConfig",
+    "build_triplets",
     "gcn_adjacency",
     "gcn_adjacency_live",
     "gcn_forward",

@@ -1,6 +1,6 @@
 """Shared model building blocks: initialisers, the MLP, norms and RoPE.
 
-The port's counterparts of ``repro.models.common`` for the GCN, Wide &
+The port's counterparts of ``repro.models.common`` for the GNNs, Wide &
 Deep and the transformer: the same distributions (``dense_init`` N(0, 1)/√fan_in,
 ``embed_init`` N(0, 1)·0.02), drawn from an explicit ``torch.Generator``
 on the parameter's device.  ``jax.random`` keys and torch generators give
@@ -50,6 +50,17 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """Normalised over the last axis in f32 (biased variance), scaled and
+    shifted, returned in ``x.dtype``."""
+    x32 = x.float()
+    centred = x32 - x32.mean(dim=-1, keepdim=True)
+    var = centred.square().mean(dim=-1, keepdim=True)
+    return (centred * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
 def swiglu(x, w_gate, w_up, w_down):
@@ -103,6 +114,7 @@ __all__ = [
     "causal_mask",
     "dense_init",
     "embed_init",
+    "layer_norm",
     "mlp",
     "rms_norm",
     "rope_frequencies",

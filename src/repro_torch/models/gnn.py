@@ -1,32 +1,46 @@
-"""GCN full-graph inference (Kipf & Welling, arXiv:1609.02907).
+"""The GNN zoo: GCN, GAT, DimeNet, MeshGraphNet and sampled-minibatch SAGE.
 
-The port's counterpart of ``gcn_init`` / ``gcn_forward`` in
-``repro.models.gnn``.  Each layer aggregates over the symmetric-normalised
-adjacency with self-loops, then applies ``h @ W + b``, with ReLU between
-the layers.  The reference aggregates with a COO ``scatter_spmm``; here
-the aggregate runs on the padded CSR that ``repro.graph.structures``
-describes as the kernels' layout, through the ``csr_aggregate`` kernel
-(one launch per layer) — the path ``repro``'s documents name for it —
-which stops each row after its live slots (:func:`gcn_adjacency_live`).
+The port's counterparts of ``repro.models.gnn``, as ``nn.Module``s whose
+``forward`` is the reference's forward function of the same model, with
+parameters of the reference's shapes and distributions (inference only:
+they do not require gradients; the training steps come later).
 
-Inference only: the parameters do not require gradients.  The training
-step (loss, optimiser and the backward through the kernel) comes later.
-GAT, DimeNet, MeshGraphNet and SAGE wait for a later slice.
+* **GCN** (Kipf & Welling, arXiv:1609.02907): each layer aggregates over
+  the symmetric-normalised adjacency with self-loops, then applies
+  ``h @ W + b``, with ReLU between the layers.  The reference aggregates
+  with a COO ``scatter_spmm``; here the aggregate runs on the padded CSR
+  that ``repro.graph.structures`` describes as the kernels' layout,
+  through the ``csr_aggregate`` kernel B4 (one launch per layer), which
+  stops each row after its live slots (:func:`gcn_adjacency_live`).
+* **SAGE**, the sampled ``minibatch_lg`` mode of GCN and GAT: each hop's
+  mean over a padded ``(B, fanout)`` neighbour block is B4 with weights
+  ``mask / count`` (one launch per hop).
+* **GAT**, **DimeNet** and **MeshGraphNet** aggregate with the port's
+  segment ops (``index_add_``), as the reference computes them with
+  ``segment_sum`` outside any Pallas kernel.  GAT adds its messages in
+  edge chunks: at ``ogb_products`` one unchunked ``(E, 64)`` f32 message
+  tensor is 15.8 GB.
+
+``use_kernel=False`` takes B4's plain version on the card too (the
+yardstick path); on CPU tensors both routes are the plain one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as tnf
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graph.segment import gcn_norm, scatter_spmm
+from repro_torch.graph.segment import gcn_norm, scatter_spmm, segment_softmax, segment_sum
 from repro_torch.graph.structures import EdgeList, padded_csr_tensors
 from repro_torch.kernels.segment_reduce import LiveRows, csr_aggregate_op, csr_aggregate_ref
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, layer_norm, mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,4 +161,387 @@ def gcn_forward(
     return h
 
 
-__all__ = ["GCN", "GCNConfig", "gcn_adjacency", "gcn_adjacency_live", "gcn_forward"]
+def _fixed(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _generator(generator: Optional[torch.Generator], device: DeviceLike) -> torch.Generator:
+    if generator is not None:
+        return generator
+    return torch.Generator(device=resolve_device(device)).manual_seed(0)
+
+
+# ===================================================================== GAT
+@dataclasses.dataclass(frozen=True)
+class GATConfig:
+    name: str
+    n_layers: int = 2
+    d_hidden: int = 8
+    n_heads: int = 8
+    d_feat: int = 1433
+    n_classes: int = 7
+    dtype: torch.dtype = torch.float32
+
+    def layer_dims(self) -> List[Tuple[int, int, int]]:
+        """``(d_in, heads, d_out)`` per layer: ``n_heads`` concatenated heads
+        of ``d_hidden`` between layers, one head of ``n_classes`` last."""
+        dims, d_in = [], self.d_feat
+        for i in range(self.n_layers):
+            last = i == self.n_layers - 1
+            heads, d_out = (1, self.n_classes) if last else (self.n_heads, self.d_hidden)
+            dims.append((d_in, heads, d_out))
+            d_in = heads * d_out
+        return dims
+
+
+#: edges whose messages one ``index_add_`` of GAT's aggregate adds
+GAT_EDGE_CHUNK = 1 << 22
+
+
+class GAT(nn.Module):
+    """Graph attention (arXiv:1710.10903) over a COO edge list, per layer:
+    SDDMM edge scores, a per-destination softmax, then the weighted sum of
+    the source rows (``GAT_EDGE_CHUNK`` edges at a time)."""
+
+    def __init__(self, cfg: GATConfig, *, generator: torch.Generator = None,
+                 device: DeviceLike = None):
+        super().__init__()
+        gen = _generator(generator, device)
+        self.cfg = cfg
+        self.layers = nn.ModuleList()
+        for d_in, heads, d_out in cfg.layer_dims():
+            # the reference draws a_src and a_dst from one key: they are equal
+            a = 0.1 * dense_init(gen, heads, d_out, cfg.dtype)
+            self.layers.append(nn.ParameterDict({
+                "w": _fixed(dense_init(gen, d_in, heads * d_out, cfg.dtype)),
+                "a_src": _fixed(a),
+                "a_dst": _fixed(a.clone()),
+            }))
+
+    def forward(
+        self, feats: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+        num_nodes: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Logits ``(N, n_classes)``; ``src``/``dst`` (E,) int, messages
+        flow ``src -> dst``."""
+        n = feats.shape[0] if num_nodes is None else int(num_nodes)
+        src, dst = src.long(), dst.long()
+        h = feats
+        last = len(self.layers) - 1
+        for i, lp in enumerate(self.layers):
+            heads, d_out = lp["a_src"].shape
+            hw = (h @ lp["w"]).reshape(-1, heads, d_out)
+            e_src = torch.einsum("nhd,hd->nh", hw, lp["a_src"])
+            e_dst = torch.einsum("nhd,hd->nh", hw, lp["a_dst"])
+            alpha = segment_softmax(
+                tnf.leaky_relu(e_src[src] + e_dst[dst], negative_slope=0.2), dst, n
+            )  # (E, H)
+            agg = hw.new_zeros((n, heads * d_out))
+            for e0 in range(0, src.shape[0], GAT_EDGE_CHUNK):
+                sl = slice(e0, e0 + GAT_EDGE_CHUNK)
+                msgs = alpha[sl, :, None] * hw[src[sl]]  # (chunk, H, D)
+                agg.index_add_(0, dst[sl], msgs.reshape(-1, heads * d_out))
+            del alpha
+            h = agg if i == last else tnf.elu(agg)
+        return h
+
+
+# ================================================================= DimeNet
+@dataclasses.dataclass(frozen=True)
+class DimeNetConfig:
+    name: str
+    n_blocks: int = 6
+    d_hidden: int = 128
+    n_bilinear: int = 8
+    n_spherical: int = 7
+    n_radial: int = 6
+    n_species: int = 16
+    cutoff: float = 5.0
+    out_dim: int = 1
+    dtype: torch.dtype = torch.float32
+
+
+def _rbf(d: torch.Tensor, n_radial: int, cutoff: float) -> torch.Tensor:
+    """DimeNet radial basis: sin(nπ d/c)/d with a smooth cutoff envelope."""
+    d = d.clamp(min=1e-6)[:, None]
+    n = torch.arange(1, n_radial + 1, dtype=torch.float32, device=d.device)[None, :]
+    u = d / cutoff
+    env = 1.0 - 6.0 * u**5 + 15.0 * u**4 - 10.0 * u**3  # C² envelope
+    return env * math.sqrt(2.0 / cutoff) * torch.sin(n * math.pi * u) / d
+
+
+def _sbf(d: torch.Tensor, angle: torch.Tensor, n_spherical: int, n_radial: int,
+         cutoff: float) -> torch.Tensor:
+    """Angular × radial basis: cos(l·θ) angular modes times the radial sine
+    family (the reference's stand-in for spherical Bessel × Legendre)."""
+    u = (d.clamp(min=1e-6) / cutoff)[:, None]
+    n = torch.arange(1, n_radial + 1, dtype=torch.float32, device=d.device)[None, :]
+    radial = torch.sin(n * math.pi * u) / (u * cutoff)  # (T, R)
+    ls = torch.arange(n_spherical, dtype=torch.float32, device=d.device)[None, :]
+    angular = torch.cos(ls * angle[:, None])  # (T, S)
+    out = angular[:, :, None] * radial[:, None, :]  # (T, S, R)
+    return out.reshape(d.shape[0], n_spherical * n_radial)
+
+
+class DimeNet(nn.Module):
+    """Directional message passing (arXiv:2003.03123): edge messages
+    updated from triplets ``(k→j, j→i)`` through an angular-radial basis
+    and a bilinear layer, then summed into nodes and per graph."""
+
+    def __init__(self, cfg: DimeNetConfig, *, generator: torch.Generator = None,
+                 device: DeviceLike = None):
+        super().__init__()
+        gen = _generator(generator, device)
+        self.cfg = cfg
+        h, nb, dt = cfg.d_hidden, cfg.n_bilinear, cfg.dtype
+        sph = cfg.n_spherical * cfg.n_radial
+        self.embed_z = _fixed(0.1 * dense_init(gen, cfg.n_species, h, dt))
+        self.rbf_proj = _fixed(dense_init(gen, cfg.n_radial, h, dt))
+        self.msg_mlp_w = _fixed(dense_init(gen, 3 * h, h, dt))
+        self.msg_mlp_b = _fixed(torch.zeros(h, dtype=dt, device=gen.device))
+        self.out_w1 = _fixed(dense_init(gen, h, h, dt))
+        self.out_w2 = _fixed(dense_init(gen, h, cfg.out_dim, dt))
+        self.blocks = nn.ModuleList(
+            nn.ParameterDict({
+                "w_src": _fixed(dense_init(gen, h, h, dt)),
+                "w_kj": _fixed(dense_init(gen, h, nb, dt)),
+                "sbf_proj": _fixed(dense_init(gen, sph, nb, dt)),
+                "bilinear": _fixed(
+                    0.1 * torch.randn((nb, nb, h), generator=gen, device=gen.device).to(dt)
+                ),
+                "w_out": _fixed(dense_init(gen, h, h, dt)),  # in the reference's params, unused
+                "w_res": _fixed(dense_init(gen, h, h, dt)),
+            })
+            for _ in range(cfg.n_blocks)
+        )
+
+    def forward(
+        self,
+        z: torch.Tensor,  # (N,) species ids
+        pos: torch.Tensor,  # (N, 3)
+        edge_src: torch.Tensor,  # (E,) j (message j→i)
+        edge_dst: torch.Tensor,  # (E,) i
+        tri_kj: torch.Tensor,  # (T,) edge index of k→j
+        tri_ji: torch.Tensor,  # (T,) edge index of j→i
+        tri_mask: torch.Tensor,  # (T,) bool or 0/1 (padding)
+        graph_ids: torch.Tensor,  # (N,) graph of each node
+        num_graphs: int,
+    ) -> torch.Tensor:
+        """Energies ``(num_graphs, out_dim)``."""
+        cfg = self.cfg
+        src, dst = edge_src.long(), edge_dst.long()
+        kj, ji = tri_kj.long(), tri_ji.long()
+        num_nodes, e = z.shape[0], src.shape[0]
+        vec = pos[dst] - pos[src]  # (E, 3)
+        dist = torch.sqrt((vec**2).sum(dim=-1) + 1e-12)
+        rbf = _rbf(dist, cfg.n_radial, cfg.cutoff)  # (E, R)
+        # the angle between edges k→j and j→i at their shared node j
+        v1 = -vec[kj]
+        v2 = vec[ji]
+        cosang = (v1 * v2).sum(dim=-1) / (
+            torch.linalg.norm(v1, dim=-1) * torch.linalg.norm(v2, dim=-1)
+        ).clamp(min=1e-9)
+        angle = torch.arccos(cosang.clamp(-1.0 + 1e-7, 1.0 - 1e-7))
+        sbf = _sbf(dist[ji], angle, cfg.n_spherical, cfg.n_radial, cfg.cutoff)  # (T, S·R)
+
+        hz = self.embed_z[z.long()]  # (N, H)
+        m = tnf.silu(
+            torch.cat([hz[src], hz[dst], rbf @ self.rbf_proj], dim=-1) @ self.msg_mlp_w
+            + self.msg_mlp_b
+        )  # (E, H)
+        mask = tri_mask.to(m.dtype)[:, None]
+        nb = cfg.n_bilinear
+        for blk in self.blocks:
+            # m_ji ← f(m_ji, Σ_k sbf ⊙ bilinear(m_kj))
+            m_kj = (m @ blk["w_kj"])[kj]  # (T, nb)
+            sb = sbf @ blk["sbf_proj"]  # (T, nb)
+            outer = (m_kj[:, :, None] * sb[:, None, :]).reshape(-1, nb * nb)
+            inter = (outer @ blk["bilinear"].reshape(nb * nb, -1)) * mask  # (T, H)
+            agg = segment_sum(inter, ji, e)  # (E, H)
+            upd = tnf.silu(m @ blk["w_src"] + agg)
+            m = m + tnf.silu(upd @ blk["w_res"])
+        # per-node readout: sum the incoming messages, then per graph
+        node_out = tnf.silu(segment_sum(m, dst, num_nodes) @ self.out_w1)
+        return segment_sum(node_out @ self.out_w2, graph_ids, num_graphs)
+
+
+def build_triplets(src, dst, num_nodes: int, max_triplets: Optional[int] = None):
+    """Host triplet index of DimeNet: for each edge ``j→i`` (in edge order)
+    and each in-edge ``k→j`` of j (in edge order) with ``k != i``, the pair
+    (edge k→j, edge j→i).  Returns padded int32 ``(kj, ji)`` and a bool
+    mask, ``max_triplets`` long (all triplets when None).  The reference's
+    double loop, vectorised: the same triplets in the same order."""
+    src = np.asarray(src)
+    dst = np.asarray(dst)
+    e = len(src)
+    in_edges = np.argsort(dst, kind="stable")  # grouped by node, edge order within
+    indeg = np.bincount(dst, minlength=num_nodes).astype(np.int64)
+    starts = np.cumsum(indeg) - indeg
+    count = indeg[src]  # in-edges of j = src[eid], for each edge eid
+    ji = np.repeat(np.arange(e, dtype=np.int64), count)
+    first = np.cumsum(count) - count
+    rank = np.arange(int(count.sum()), dtype=np.int64) - np.repeat(first, count)
+    kj = in_edges[np.repeat(starts[src], count) + rank]
+    keep = src[kj] != dst[ji]  # no backtracking k == i
+    kj, ji = kj[keep], ji[keep]
+    t = len(kj)
+    cap = t if max_triplets is None else max_triplets
+    n = min(t, cap)
+    kj_a = np.zeros(cap, np.int32)
+    ji_a = np.zeros(cap, np.int32)
+    mask = np.zeros(cap, bool)
+    kj_a[:n] = kj[:n]
+    ji_a[:n] = ji[:n]
+    mask[:n] = True
+    return kj_a, ji_a, mask
+
+
+# ============================================================ MeshGraphNet
+@dataclasses.dataclass(frozen=True)
+class MGNConfig:
+    name: str
+    n_layers: int = 15
+    d_hidden: int = 128
+    mlp_layers: int = 2
+    d_node_in: int = 8
+    d_edge_in: int = 4
+    d_out: int = 3
+    dtype: torch.dtype = torch.float32
+
+
+class _MGNMLP(nn.Module):
+    """ReLU MLP of ``n_layers`` layers, then a LayerNorm (``norm=True``)."""
+
+    def __init__(self, gen, d_in, d_hidden, d_out, n_layers, dtype):
+        super().__init__()
+        dims = [d_in] + [d_hidden] * (n_layers - 1) + [d_out]
+        self.w = nn.ParameterList(
+            _fixed(dense_init(gen, a, b, dtype)) for a, b in zip(dims[:-1], dims[1:])
+        )
+        self.b = nn.ParameterList(
+            _fixed(torch.zeros(b, dtype=dtype, device=gen.device)) for b in dims[1:]
+        )
+        self.ln_g = _fixed(torch.ones(d_out, dtype=dtype, device=gen.device))
+        self.ln_b = _fixed(torch.zeros(d_out, dtype=dtype, device=gen.device))
+
+    def forward(self, x: torch.Tensor, norm: bool = True) -> torch.Tensor:
+        h = mlp(x, list(self.w), list(self.b))
+        return layer_norm(h, self.ln_g, self.ln_b) if norm else h
+
+
+class MeshGraphNet(nn.Module):
+    """Encode-process-decode (arXiv:2010.03409): per layer an edge MLP on
+    ``[e, h[src], h[dst]]``, a sum over each node's in-edges and a node
+    MLP, both residual."""
+
+    def __init__(self, cfg: MGNConfig, *, generator: torch.Generator = None,
+                 device: DeviceLike = None):
+        super().__init__()
+        gen = _generator(generator, device)
+        self.cfg = cfg
+        h, k, dt = cfg.d_hidden, cfg.mlp_layers, cfg.dtype
+        self.node_enc = _MGNMLP(gen, cfg.d_node_in, h, h, k, dt)
+        self.edge_enc = _MGNMLP(gen, cfg.d_edge_in, h, h, k, dt)
+        self.blocks = nn.ModuleList(
+            nn.ModuleDict({
+                "edge": _MGNMLP(gen, 3 * h, h, h, k, dt),
+                "node": _MGNMLP(gen, 2 * h, h, h, k, dt),
+            })
+            for _ in range(cfg.n_layers)
+        )
+        self.decoder = _MGNMLP(gen, h, h, cfg.d_out, k, dt)
+
+    def forward(
+        self, node_feat: torch.Tensor, edge_feat: torch.Tensor, src: torch.Tensor,
+        dst: torch.Tensor, num_nodes: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Per-node outputs ``(N, d_out)``."""
+        n = node_feat.shape[0] if num_nodes is None else int(num_nodes)
+        src, dst = src.long(), dst.long()
+        h = self.node_enc(node_feat)
+        e = self.edge_enc(edge_feat)
+        for blk in self.blocks:
+            e = e + blk["edge"](torch.cat([e, h[src], h[dst]], dim=-1))  # edge update
+            agg = segment_sum(e, dst, n)  # the sum aggregator
+            h = h + blk["node"](torch.cat([h, agg], dim=-1))
+        return self.decoder(h, norm=False)
+
+
+# ================================================ sampled-minibatch (SAGE)
+@dataclasses.dataclass(frozen=True)
+class SageConfig:
+    name: str
+    d_feat: int
+    d_hidden: int
+    n_classes: int
+    fanouts: Tuple[int, ...] = (15, 10)
+    dtype: torch.dtype = torch.float32
+
+
+Hop = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class SAGE(nn.Module):
+    """GraphSAGE-style hop aggregation over sampled fanout blocks: the
+    ``minibatch_lg`` execution of the message-passing archs (the mean
+    aggregator, GCN's sym-norm becoming the sampled-mean estimator).
+
+    Each hop's mean is ``Σ_k (mask / max(count, 1))[b, k] · h[nbr[b, k]]``:
+    B4 (``csr_aggregate_op``, one launch per hop) with ``use_kernel``, its
+    plain version without.
+    """
+
+    def __init__(self, cfg: SageConfig, *, generator: torch.Generator = None,
+                 device: DeviceLike = None, use_kernel: bool = True):
+        super().__init__()
+        gen = _generator(generator, device)
+        self.cfg = cfg
+        self.use_kernel = use_kernel
+        d, dt = cfg.d_hidden, cfg.dtype
+        self.w_in = _fixed(dense_init(gen, cfg.d_feat, d, dt))
+        self.w_nbr = nn.ParameterList()
+        self.w_self = nn.ParameterList()
+        for _ in cfg.fanouts:
+            self.w_nbr.append(_fixed(dense_init(gen, d, d, dt)))
+            self.w_self.append(_fixed(dense_init(gen, d, d, dt)))
+        self.w_out = _fixed(dense_init(gen, d, cfg.n_classes, dt))
+
+    def forward(self, feats: torch.Tensor, hops: Sequence[Hop]) -> torch.Tensor:
+        """Logits ``(B, n_classes)`` of the seeds.
+
+        ``hops[k] = (frontier (B_k,), nbr (B_k, fanout), mask)``, local
+        indices into ``feats`` (:func:`~repro_torch.graph.sampler.relabel_to_local`);
+        hop 0 expands the seeds.  The deepest hop runs first, so each reads
+        the previous depth's output."""
+        h = torch.relu(feats @ self.w_in)
+        for (frontier, nbr, mask), w, ws in zip(reversed(list(hops)), self.w_nbr, self.w_self):
+            m = mask.to(h.dtype)
+            wgt = (m / m.sum(dim=1, keepdim=True).clamp(min=1.0)).contiguous()
+            nbr = nbr.to(torch.int32).contiguous()
+            if self.use_kernel:
+                mean = csr_aggregate_op(nbr, wgt, h)
+            else:
+                mean = csr_aggregate_ref(nbr, wgt, h)
+            frontier = frontier.long()
+            out = torch.relu(mean @ w + h[frontier] @ ws)
+            h = h.index_copy(0, frontier, out)
+        return h[hops[0][0].long()] @ self.w_out
+
+
+__all__ = [
+    "DimeNet",
+    "DimeNetConfig",
+    "GAT",
+    "GATConfig",
+    "GAT_EDGE_CHUNK",
+    "GCN",
+    "GCNConfig",
+    "MGNConfig",
+    "MeshGraphNet",
+    "SAGE",
+    "SageConfig",
+    "build_triplets",
+    "gcn_adjacency",
+    "gcn_adjacency_live",
+    "gcn_forward",
+]

@@ -57,7 +57,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import gqa_attention_op, gqa_attention_ref
 from repro_torch.models.common import apply_rope, dense_init, embed_init, rms_norm, swiglu
 
-_NOT_PORTED = "is not ported yet (ROADMAP A.9: MoE FFN, MLA attention)"
+_NOT_PORTED = "is not ported yet (ROADMAP A.9.3: MoE FFN, MLA attention)"
 
 
 @dataclasses.dataclass(frozen=True)

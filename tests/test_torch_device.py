@@ -92,6 +92,16 @@ def test_no_module_imports_jax_or_repro():
         "repro_torch.models.convert",
         "repro_torch.models.gnn",
         "repro_torch.models.recsys",
+        "repro_torch.configs.registry",
+        "repro_torch.configs.dhlp_bio",
+        "repro_torch.configs.gat_cora",
+        "repro_torch.configs.dimenet",
+        "repro_torch.configs.meshgraphnet",
+        "repro_torch.configs.granite_moe_3b_a800m",
+        "repro_torch.configs.minicpm3_4b",
+        "repro_torch.configs.moonshot_v1_16b_a3b",
+        "repro_torch.graph.sampler",
+        "repro_torch.graph.partition",
     } <= set(modules)
     code = "\n".join(
         [

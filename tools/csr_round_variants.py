@@ -7,7 +7,8 @@ scratch copies of both sources (under ``build/``, which git ignores) with
 other gathers in flight per warp (``kDepth`` in the header) and warps per
 block (each source's ``kMaxWarps``, which also sets the register budget
 through ``__launch_bounds__``), and times each variant at several block sizes
-(``ops._SLOTS_PER_BLOCK``) on the LP path's shapes: one full B1 round over
+(``ops._SLOTS_PER_BLOCK``), and B3 with the header's running row sum in
+place of its compensated one (``kCompensated``), on the LP path's shapes: one full B1 round over
 the fused plan of ``powerlaw`` scale 1.0 seed 0 and one full B3 round over
 its legacy layout, S = 4,396 columns, beside cuSPARSE (``torch.addmm``
 with a CSR operator).  Every variant is first checked against the plain
@@ -31,15 +32,18 @@ sys.path.insert(0, str(ROOT))
 DEPTH = "  static constexpr int kDepth = 8;\n"
 WARPS = {"csr_round_residual.cu": "constexpr int kMaxWarps = 16;",
          "csr_round.cu": "constexpr int kMaxWarps = 8;"}
-# (name, gathers in flight, B1's warps per block, B3's, slots per block)
+COMPENSATED = "launch<T, T, false, kMaxWarps, true>"  # B3's launch in csr_round.cu
+# (name, gathers in flight, B1's warps per block, B3's, slots per block,
+#  B3's compensated row sum)
 VARIANTS = (
-    ("shipped", 8, 16, 8, 2048),
-    ("slots 1024", 8, 16, 8, 1024),
-    ("slots 4096", 8, 16, 8, 4096),
-    ("depth 4", 4, 16, 8, 2048),
-    ("8 warps", 8, 8, 8, 2048),
-    ("16 warps", 8, 16, 16, 2048),
-    ("32 warps", 8, 32, 32, 2048),
+    ("shipped", 8, 16, 8, 2048, True),
+    ("slots 1024", 8, 16, 8, 1024, True),
+    ("slots 4096", 8, 16, 8, 4096, True),
+    ("depth 4", 4, 16, 8, 2048, True),
+    ("8 warps", 8, 8, 8, 2048, True),
+    ("16 warps", 8, 16, 16, 2048, True),
+    ("32 warps", 8, 32, 32, 2048, True),
+    ("B3 running sum", 8, 16, 8, 2048, False),
 )
 
 
@@ -67,24 +71,27 @@ def main() -> int:
     print(cs.smi_name_and_limit(), flush=True)
     texts = {name: (common.CSRC_DIR / name).read_text()
              for name in ("csr_round_common.cuh", *WARPS)}
-    for name, line in (("csr_round_common.cuh", DEPTH), *WARPS.items()):
+    for name, line in (("csr_round_common.cuh", DEPTH), *WARPS.items(),
+                       ("csr_round.cu", COMPENSATED)):
         if line not in texts[name]:
             raise SystemExit(f"csr_round_variants: {name} no longer has {line.strip()!r}")
     sources = (ops.SOURCE, ops.ROUND_SOURCE)
     warps_of = {ops.SOURCE: 0, ops.ROUND_SOURCE: 1}
     csrc, build_dir = common.CSRC_DIR, common.BUILD_DIR
     libs = {}
-    for key in sorted({(d, w1, w3) for _, d, w1, w3, _ in VARIANTS}):
+    for key in sorted({(d, w1, w3, comp) for _, d, w1, w3, _, comp in VARIANTS}):
         depth = key[0]
-        scratch = ROOT / "build" / "csr_round_variants" / "d{}b1w{}b3w{}".format(*key)
+        scratch = ROOT / "build" / "csr_round_variants" / "d{}b1w{}b3w{}c{:d}".format(*key)
         (scratch / "csrc").mkdir(parents=True, exist_ok=True)
         (scratch / "csrc" / "csr_round_common.cuh").write_text(texts["csr_round_common.cuh"].replace(
             DEPTH, DEPTH.replace("8", str(depth))))
         for src in sources:
             line = WARPS[src]
             warps = key[1 + warps_of[src]]
-            (scratch / "csrc" / src).write_text(texts[src].replace(
-                line, f"constexpr int kMaxWarps = {warps};"))
+            text = texts[src].replace(line, f"constexpr int kMaxWarps = {warps};")
+            if not key[3]:
+                text = text.replace(COMPENSATED, COMPENSATED.replace("true", "false"))
+            (scratch / "csrc" / src).write_text(text)
         common.CSRC_DIR, common.BUILD_DIR = scratch / "csrc", scratch / "out"
         common._LIBS.clear()
         libs[key] = common.build_all(list(sources))
@@ -148,9 +155,9 @@ def main() -> int:
 
     slots = ops._SLOTS_PER_BLOCK
     times = {name: [] for name, *_ in VARIANTS}
-    for name, depth, w1, w3, spb in VARIANTS + VARIANTS[::-1]:
+    for name, depth, w1, w3, spb, comp in VARIANTS + VARIANTS[::-1]:
         common._LIBS.clear()
-        common._LIBS.update(libs[depth, w1, w3])
+        common._LIBS.update(libs[depth, w1, w3, comp])
         ops._SLOTS_PER_BLOCK = spb
         if not times[name]:
             cs.check_close(np, f"{name}: B1 round", b1_round(), want1, cs.F32_TOL)
@@ -158,11 +165,11 @@ def main() -> int:
         times[name].append((cs.cuda_ms(torch, b1_round), cs.cuda_ms(torch, b3_round)))
     ops._SLOTS_PER_BLOCK = slots
     common._LIBS.clear()
-    print("  variant: gathers in flight, warps per block (B1, B3), slots per block: "
-          "B1 round ms (two runs), B3 round ms (two runs)")
-    for name, depth, w1, w3, spb in VARIANTS:
+    print("  variant: gathers in flight, warps per block (B1, B3), slots per block, B3 "
+          "compensated: B1 round ms (two runs), B3 round ms (two runs)")
+    for name, depth, w1, w3, spb, comp in VARIANTS:
         (a1, a3), (b1, b3) = times[name]
-        print(f"  {name}: {depth}, ({w1}, {w3}), {spb}: B1 {a1:.4f} / {b1:.4f}, "
+        print(f"  {name}: {depth}, ({w1}, {w3}), {spb}, {comp}: B1 {a1:.4f} / {b1:.4f}, "
               f"B3 {a3:.4f} / {b3:.4f}")
     return 0
 
