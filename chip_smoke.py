@@ -65,7 +65,10 @@ Phases (each raises on failure, so the script exits non-zero):
     table resident;
 10a. ``flash_attention`` vs its plain version at the transformer path's
     shapes (``h2o-danube-1.8b`` prefill_32k and decode_32k layer launches
-    and an 8k f32 one, a ``stablelm-1.6b`` 4k one), bf16 held at
+    and an 8k f32 one, a ``stablelm-1.6b`` 4k one; phase 17's
+    ``granite-moe-3b-a800m`` prefill_32k and decode_32k layers, D = 64
+    with 24 query heads over 8 KV heads, and ``moonshot-v1-16b-a3b``'s
+    8k prefill and batch-32 decode layers, D = 128, 16 / 16), bf16 held at
     ``rtol=2e-2, atol=1e-5`` (one unit in the last place); at each shape
     the same gate must reject the kernel given planted faults (window one
     short, the last 64 live keys dropped, KV heads of the next group);
@@ -142,12 +145,12 @@ Phases (each raises on failure, so the script exits non-zero):
     with the ``kernel`` serve engine's top-10 lists, a ``remesh`` of the
     solve's state onto a one-device mesh, bit for bit; wall per round
     beside B1's;
-14. the kernel list, printed after phase 15 has run: launches of each
+14. the kernel list, printed after phases 15 and 17 have run: launches of each
     kernel on its path (phases 4-5, 11 (b)-(e) and 13 (a) for
     ``csr_round_residual``, phases 4-5 for ``lp_round``, phases 6, 11 (d),
     13 (a) and 15 (a, b) for ``csr_round``, phases 9 and 15 (c) for
-    ``csr_aggregate``, phase 10 for ``embedding_bag``, phase 10c for
-    ``flash_attention``; all must be non-zero, and so must phase 15's
+    ``csr_aggregate``, phase 10 for ``embedding_bag``, phases 10c and
+    17 (a, d) for ``flash_attention``; all must be non-zero, and so must phase 15's
     ``csr_round`` and ``csr_aggregate``), with the phase 3, 8 and 10a
     measurements (``csr_round_residual``'s error also over phases 11 and
     13's shapes, ``csr_round``'s over phases 13 and 15's,
@@ -175,9 +178,36 @@ Phases (each raises on failure, so the script exits non-zero):
     padded union sizes: every output finite, at ``full_graph_sm`` and
     ``molecule`` held to the same module on the CPU at ``rtol=1e-4,
     atol=1e-5``, every forward timed;
-16. the result line.
+16. the result line;
+17. the MoE and MLA models (run before phase 14), each sub-phase's seconds
+    and peak device memory printed, every cut of a published cell named
+    in its log line: (a) ``granite-moe-3b-a800m`` ``FULL`` in bf16 on the
+    kernel route (48 padded experts stored): ``prefill_32k`` at batch 1
+    (cut from 32) and ``decode_32k`` at batch 128 with a 4,096-slot cache
+    (cut from 32,768) filled by 3,968-token prefills in groups of 16, then
+    64 greedy steps; walls, tokens/s, one traced call of each, the MoE
+    FFN's share of a prefill (CUDA events around each layer's FFN);
+    ``flash_attention`` launched ``n_layers`` times a call, exactly; at
+    layer 0 of the real prefill the MoE dispatch by index held to the
+    one-hot einsum version on the same routing (bf16 at ``BF16_TOL``, f32
+    at ``F32_TOL``) and the routing to its invariants (no padded expert,
+    ``keep`` drops exactly the choices past the capacity, a slot holds at
+    most one token); (b) granite at full width in f32, a 2,048-token
+    prefill and 8 steps, kernel route vs plain route layer by layer with
+    each layer fed the plain route's input: attention at ``F32_TOL``, the
+    MoE output at ``F32_TOL`` on every token routed alike, a top-k that
+    differs allowed only where the plain route's k-th and (k+1)-th
+    probabilities are within ``TIE_GAP`` (the count printed); (c)
+    ``minicpm3-4b`` ``FULL`` in bf16, absorbed MLA on the plain route:
+    prefill of 8,192 tokens at batch 1 (cut from 32 x 32,768), decode at
+    batch 128 on a 4,096-slot latent cache filled by 512-token prompts,
+    32 steps, every logit finite; in f32 at full width and 2 layers,
+    absorbed vs naive on the card at ``F32_TOL`` and the card vs the CPU at
+    ``rtol=1e-4, atol=1e-5``; (d) ``moonshot-v1-16b-a3b`` at full width
+    with 8 of its 48 layers: prefill of 8,192 tokens, decode at batch 32
+    (cut from 128) on 4,096 slots, B6 at D = 128, 64 experts top-6.
 
-Phases 4, 6, 7, 9, 10, 10c and 11 each also trace calls with
+Phases 4, 6, 7, 9, 10, 10c, 11 and 17 (a) each also trace calls with
 ``torch.profiler`` (after one untraced warm-up call).
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -358,6 +388,10 @@ FLASH_SHAPES = (
     ("h2o-danube-1.8b decode_32k layer", 128, 32, 8, 1, 4096, 80, 4096, 4000, "bf16"),
     ("stablelm-1.6b prefill 4k layer", 1, 32, 32, 4096, 4096, 64, None, 0, "bf16"),
     ("h2o-danube-1.8b prefill 8k layer", 1, 32, 8, 8192, 8192, 80, 4096, 0, "f32"),
+    ("granite-moe-3b-a800m prefill_32k layer", 1, 24, 8, 32768, 32768, 64, None, 0, "bf16"),
+    ("granite-moe-3b-a800m decode_32k layer", 128, 24, 8, 1, 4096, 64, None, 4000, "bf16"),
+    ("moonshot-v1-16b-a3b prefill 8k layer", 1, 16, 16, 8192, 8192, 128, None, 0, "bf16"),
+    ("moonshot-v1-16b-a3b decode layer", 32, 16, 16, 1, 4096, 128, None, 4000, "bf16"),
 )
 
 
@@ -2378,6 +2412,453 @@ def zoo_phase(torch, np, dev) -> dict:
     return out
 
 
+# phase 17: the MoE and MLA models (queue A.9.3).  Each cut of a published
+# cell is a constant here, named in the phase's log lines.
+MOE_PREFILL_BATCH = 1  # prefill_32k at batch 1, cut from 32
+MOE_DECODE_SLOTS = 4096  # decode_32k's cache, cut from 32,768 slots
+MOE_AGREE_PROMPT, MOE_AGREE_STEPS = 2048, 8  # (b): the f32 layer-by-layer comparison
+TIE_GAP = 1e-5  # (b): a top-k may differ only where p_k - p_(k+1) is below this
+MLA_PREFILL = 8192  # (c): prefill at batch 1, cut from 32 x 32,768
+MLA_DECODE_PROMPT, MLA_DECODE_STEPS = 512, 32  # (c): decode at batch 128, 4,096 slots
+MLA_AGREE_LAYERS, MLA_AGREE_PROMPT, MLA_AGREE_STEPS = 2, 64, 4  # (c): f32 at full width
+MOONSHOT_LAYERS = 8  # (d): depth cut from 48
+MOONSHOT_PREFILL, MOONSHOT_DECODE_BATCH, MOONSHOT_STEPS = 8192, 32, 32
+
+
+def flash_launches(torch, what: str, want: int) -> int:
+    """B6's launches since the last reset: ``want``, and no other kernel's."""
+    from repro_torch.kernels import launch_counts
+
+    counts = launch_counts()
+    n = counts["flash_attention"]
+    if n != want or sum(counts.values()) != n:
+        fail(f"{what}: launched {counts}, expected {want} flash_attention")
+    return n
+
+
+def make_lm(torch, cfg, dev, seed: int):
+    """The model on the card from a seed; logs its parameters and bytes."""
+    from repro_torch.models.transformer import Transformer
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name} ({cfg.n_layers} layers, {str(cfg.dtype).split('.')[-1]}): "
+        f"{cfg.param_count()} parameters, {(torch.cuda.memory_allocated() - mem0) / 1e9:.2f} GB "
+        f"stored (padded experts and vocab), made on the card in {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def lm_walls(torch, label, fn, tokens: int, iters: int) -> float:
+    """Median wall of ``iters`` calls after the one already made; logs
+    tokens/s."""
+    walls = sorted(wall_s(torch, fn, iters=iters))
+    med = walls[len(walls) // 2]
+    log(f"  {label}: {', '.join(f'{t:.4f}' for t in walls)} s; median {med:.4f} s, "
+        f"{tokens / med:.0f} tokens/s")
+    return med
+
+
+def decode_run(torch, np, model, prefill, decode_step, caches, batch, prompt, group, steps, rng,
+               batch_slice):
+    """Fill ``caches`` by prefills of ``group`` rows of ``prompt`` tokens,
+    then ``steps`` greedy steps: the fill seconds, each step's seconds and
+    the last logits."""
+    cfg = model.cfg
+    toks = rng.integers(0, cfg.vocab, (batch, prompt))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = [prefill(toks[g:g + group], batch_slice(caches, g, g + group))[0]
+            for g in range(0, batch, group)]
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    tok = torch.cat(last).argmax(-1, keepdim=True)
+    walls = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = decode_step(caches, tok, prompt + i)
+        tok = lg.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not torch.isfinite(lg[:, :cfg.vocab]).all() or tok.shape != (batch, 1):
+        fail(f"{cfg.name} decode: non-finite logits")
+    return t_fill, walls, tok
+
+
+def log_steps(label, walls, batch) -> float:
+    srt = sorted(walls)
+    med = srt[len(srt) // 2]
+    log(f"  {label}: {len(walls)} greedy steps, median {med * 1e3:.3f} ms, min "
+        f"{srt[0] * 1e3:.3f}, max {srt[-1] * 1e3:.3f} ms per step, {batch / med:.0f} tokens/s")
+    return med
+
+
+def gqa_slice(caches, a, b):
+    return caches[:, :, a:b]
+
+
+def mla_slice(caches, a, b):
+    return caches[:, a:b]
+
+
+def moe_dispatch_checks(torch, np, cfg, lp, x) -> float:
+    """At one layer's FFN input ``x`` of a real prefill: the index dispatch
+    held to the one-hot einsum version on the same routing (bf16 at
+    ``BF16_TOL``, then the layer in f32 at ``F32_TOL``), and the routing
+    held to its invariants.  Returns the bf16 max|Δ|."""
+    import dataclasses
+    import types
+
+    from repro_torch.models import transformer as tf
+
+    moe = cfg.moe
+    errs = {}
+    for dtype, tol in ((cfg.dtype, BF16_TOL), (torch.float32, F32_TOL)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = types.SimpleNamespace(**{n: getattr(lp, n).to(dtype) for n in
+                                     ("router", "w_gate", "w_up", "w_down")})
+        xt = tf._group(c, x.to(dtype))
+        r = tf._route(c, p, xt)
+        tag = f"{cfg.name} MoE dispatch {str(dtype).split('.')[-1]} at layer 0 of the prefill"
+        errs[dtype] = check_close(np, f"{tag}, index vs one-hot einsums",
+                                  tf._dispatch_index(c, p, xt, r),
+                                  tf._dispatch_plain(c, p, xt, r), tol)
+        n_g, g_sz, k = r.gate_idx.shape
+        if int(r.gate_idx.max()) >= moe.num_experts:
+            fail(f"{tag}: a padded expert was chosen")
+        if not torch.equal(r.keep, r.pos < r.cap):
+            fail(f"{tag}: keep is not pos < cap")
+        group = torch.arange(n_g, device=x.device)[:, None, None]
+        kept = ((r.gate_idx * n_g + group) * r.cap + r.pos)[r.keep]
+        if kept.unique().numel() != kept.numel():
+            fail(f"{tag}: a (g, e, c) slot holds two tokens")
+        load = torch.zeros((n_g, moe.padded_experts), dtype=torch.long, device=x.device)
+        load.scatter_add_(1, r.gate_idx.reshape(n_g, -1), torch.ones_like(r.gate_idx).reshape(
+            n_g, -1))
+        if int(r.keep.sum()) != int(load.clamp_max(r.cap).sum()):
+            fail(f"{tag}: keep does not drop exactly the choices past the capacity")
+        log(f"    routing: {n_g} groups of {g_sz}, capacity {r.cap}, "
+            f"{int((~r.keep).sum())} of {r.keep.numel()} choices dropped, no padded expert, "
+            "each slot at most one token")
+        del xt, r, p
+    return errs[cfg.dtype]
+
+
+def moe_share_ms(torch, fn):
+    """Run ``fn`` with CUDA events around each MoE FFN call: (the call's
+    device span, the MoE FFNs' summed spans) in ms."""
+    from repro_torch.models import transformer as tf
+
+    real = tf._moe_ffn
+    marks = []
+
+    def timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    tf._moe_ffn = timed
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        tf._moe_ffn = real
+    return start.elapsed_time(end), sum(a.elapsed_time(b) for a, b in marks)
+
+
+def granite_serving(torch, np, dev) -> dict:
+    """(a) granite-moe-3b-a800m FULL in bf16 on the kernel route."""
+    from repro_torch.configs import cells, granite_moe_3b_a800m
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import init_cache, make_decode_step, make_prefill
+
+    cfg = granite_moe_3b_a800m.FULL
+    rng = np.random.default_rng(17)
+    res = {}
+    with SubPhase(torch, "17 (a) model"):
+        model = make_lm(torch, cfg, dev, 17)
+    prefill, decode_step = make_prefill(model), make_decode_step(model)
+    seq = cells.LM_SHAPES["prefill_32k"]["seq"]
+    with SubPhase(torch, "17 (a) prefill_32k"):
+        p_toks = rng.integers(0, cfg.vocab, (MOE_PREFILL_BATCH, seq))
+        p_caches = init_cache(cfg, MOE_PREFILL_BATCH, seq, device=dev)
+        seen = []
+        real = tf._moe_ffn
+
+        def keep_first(c, lp, x, *a, **kw):  # layer 0's FFN input, for the dispatch checks
+            if not seen:
+                seen.append((lp, x.clone()))
+            return real(c, lp, x, *a, **kw)
+
+        reset_launch_counts()
+        tf._moe_ffn = keep_first
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = prefill(p_toks, p_caches)
+            torch.cuda.synchronize()
+        finally:
+            tf._moe_ffn = real
+        log(f"  prefill_32k (batch {MOE_PREFILL_BATCH}, cut from 32) x {seq} tokens: first call "
+            f"{time.perf_counter() - t0:.3f} s")
+        res["wall"] = lm_walls(torch, "prefill_32k walls", lambda: prefill(p_toks, p_caches),
+                               MOE_PREFILL_BATCH * seq, 3)
+        res["launches"] = flash_launches(torch, "granite prefill_32k", cfg.n_layers * 4)
+        if logits.shape != (MOE_PREFILL_BATCH, cfg.padded_vocab) or not torch.isfinite(
+                logits[:, :cfg.vocab]).all():
+            fail(f"granite prefill_32k logits: shape {tuple(logits.shape)} or non-finite values")
+        res["moe_err"] = moe_dispatch_checks(torch, np, cfg, *seen[0])
+        del seen
+        span, moe = moe_share_ms(torch, lambda: prefill(p_toks, p_caches))
+        log(f"  MoE FFN share of one prefill_32k call (CUDA events around each layer's FFN): "
+            f"{moe:.2f} of {span:.2f} ms, {moe / span:.3f}")
+        res["moe_share"] = moe / span
+        t_p, busy, by_name = trace_solve(torch, "granite prefill_32k",
+                                         lambda: prefill(p_toks, p_caches))
+        b6 = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name)
+        log(f"  flash_attention share of the traced prefill: {b6 / busy:.3f} of device busy")
+        del p_caches, logits
+    batch = cells.LM_SHAPES["decode_32k"]["batch"]
+    with SubPhase(torch, "17 (a) decode_32k"):
+        caches = init_cache(cfg, batch, MOE_DECODE_SLOTS, device=dev)
+        reset_launch_counts()
+        t_fill, walls, tok = decode_run(torch, np, model, prefill, decode_step, caches, batch,
+                                        DECODE_PROMPT, DECODE_GROUP, DECODE_STEPS, rng, gqa_slice)
+        res["launches"] += flash_launches(
+            torch, "granite decode_32k", cfg.n_layers * (batch // DECODE_GROUP + DECODE_STEPS))
+        log(f"  decode_32k: batch {batch}, cache {MOE_DECODE_SLOTS} slots (cut from 32,768; "
+            f"{caches.numel() * caches.element_size() / 1e9:.2f} GB), filled by "
+            f"{batch // DECODE_GROUP} prefills of {DECODE_GROUP} x {DECODE_PROMPT} in "
+            f"{t_fill:.3f} s")
+        res["step"] = log_steps("decode_32k", walls, batch)
+        t_p, busy, by_name = trace_solve(torch, "granite decode_32k step", lambda: decode_step(
+            caches, tok, DECODE_PROMPT + DECODE_STEPS))
+        b6 = sum(t for name, (t, _) in by_name.items() if "flash_fwd" in name)
+        log(f"  flash_attention share of the traced decode step: {b6 / busy:.3f} of device busy")
+        del caches
+    del model
+    return res
+
+
+def granite_agreement(torch, np, dev) -> None:
+    """(b) granite at full width in f32, kernel route vs plain route layer
+    by layer, each layer's input the plain route's."""
+    import dataclasses
+
+    from repro_torch.configs import granite_moe_3b_a800m
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import rms_norm
+
+    cfg = dataclasses.replace(granite_moe_3b_a800m.FULL, dtype=torch.float32)
+    model = make_lm(torch, cfg, dev, 18)
+    moe, k = cfg.moe, cfg.moe.top_k
+    n = MOE_AGREE_PROMPT + MOE_AGREE_STEPS
+    toks = torch.as_tensor(np.random.default_rng(18).integers(0, cfg.vocab, (1, n)), device=dev)
+    caches = {r: tf.init_cache(cfg, 1, n, device=dev) for r in (True, False)}
+    errs = {"attention": 0.0, "moe": 0.0}
+    flips = tokens = knock_on = 0
+    gaps = []
+    calls = [(0, MOE_AGREE_PROMPT)] + [(p, p + 1) for p in range(MOE_AGREE_PROMPT, n)]
+    for a, b in calls:
+        x = model.embed[toks[:, a:b]]
+        q_pos = torch.arange(b - a, device=dev) + a
+        for i, lp in enumerate(model.layers):
+            h = rms_norm(x, lp.norm_attn)
+            att = {r: tf._attention(cfg, lp, h, q_pos, caches[r][i], a, r) for r in (True, False)}
+            errs["attention"] = max(errs["attention"], check_close(
+                np, f"layer {i} attention at {a}", att[True], att[False], F32_TOL, quiet=True))
+            out, route = {}, {}
+            for r in (True, False):
+                f_in = rms_norm(x + att[r], lp.norm_ffn)
+                route[r] = tf._route(cfg, lp, tf._group(cfg, f_in))
+                out[r] = tf._moe_ffn(cfg, lp, f_in).reshape(-1, cfg.d_model)
+            # each token's choices in expert order: the order among its top-k
+            # changes only the summation order of its output
+            (ik, kk), (ip, kp) = ((r.gate_idx.sort(-1), r.keep) for r in (route[True],
+                                                                          route[False]))
+            same_set = (ik.values == ip.values).all(-1)
+            same = (same_set & (kk.gather(-1, ik.indices) == kp.gather(-1, ip.indices)).all(-1)
+                    ).reshape(-1)
+            tokens += same_set.numel()
+            if not bool(same_set.all()):  # top-k flips: only at near-ties of the plain route
+                xt = tf._group(cfg, rms_norm(x + att[False], lp.norm_ffn))
+                logits = (xt @ lp.router).float()
+                logits[..., moe.num_experts:] = -1e30
+                p = torch.softmax(logits, -1).sort(-1, descending=True).values
+                gap = (p[..., k - 1] - p[..., k])[~same_set]
+                gaps += gap.tolist()
+                flips += int((~same_set).sum())
+                if float(gap.max()) >= TIE_GAP:
+                    fail(f"layer {i} at {a}: a top-k differs where p_k - p_(k+1) = "
+                         f"{float(gap.max()):.3e} >= {TIE_GAP}")
+            # a flip moves later choices in its group's queues: those tokens'
+            # keep may differ although their top-k does not
+            moved = int((same_set.reshape(-1) & ~same).sum())
+            if moved and bool(same_set.all()):
+                fail(f"layer {i} at {a}: {moved} tokens kept other choices with no top-k flip")
+            knock_on += moved
+            if bool(same.any()):
+                errs["moe"] = max(errs["moe"], check_close(
+                    np, f"layer {i} MoE at {a}", out[True][same], out[False][same], F32_TOL,
+                    quiet=True))
+            x = x + att[False] + out[False].reshape(x.shape)
+    log(f"  {cfg.name} f32, prefill {MOE_AGREE_PROMPT} + {MOE_AGREE_STEPS} steps, "
+        f"{cfg.n_layers} layers each fed the plain route's input: attention max|Δ| kernel vs "
+        f"plain {errs['attention']:.3e}, MoE max|Δ| on equal routing {errs['moe']:.3e} "
+        f"(rtol={F32_TOL['rtol']}, atol={F32_TOL['atol']}); top-k flips {flips} of {tokens} "
+        f"token-layers (every one at p_k - p_(k+1) < {TIE_GAP}: {gaps[:8]}), {knock_on} "
+        "token-layers with the same top-k but another keep after a flip (not compared)")
+    del model, caches
+
+
+def minicpm3_serving(torch, np, dev) -> None:
+    """(c) minicpm3-4b FULL in bf16, MLA absorbed on the plain route; then
+    in f32 at full width and 2 layers, absorbed vs naive on the card and
+    the card vs the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import minicpm3_4b
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models.transformer import (
+        Transformer, init_cache, make_decode_step, make_prefill)
+
+    cfg = minicpm3_4b.FULL
+    if not cfg.mla_absorbed:
+        fail("minicpm3-4b: REPRO_MLA_ABSORBED=0 is set; phase 17 (c) serves the absorbed path")
+    rng = np.random.default_rng(19)
+    with SubPhase(torch, "17 (c) model"):
+        model = make_lm(torch, cfg, dev, 19)
+    prefill, decode_step = make_prefill(model), make_decode_step(model)
+    with SubPhase(torch, "17 (c) prefill"):
+        p_toks = rng.integers(0, cfg.vocab, (1, MLA_PREFILL))
+        p_caches = init_cache(cfg, 1, MLA_PREFILL, device=dev)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = prefill(p_toks, p_caches)
+        torch.cuda.synchronize()
+        log(f"  prefill batch 1 x {MLA_PREFILL} (cut from 32 x 32,768), absorbed MLA on the "
+            f"plain route: first call {time.perf_counter() - t0:.3f} s")
+        lm_walls(torch, "prefill walls", lambda: prefill(p_toks, p_caches), MLA_PREFILL, 1)
+        flash_launches(torch, "minicpm3 prefill", 0)
+        if not torch.isfinite(logits[:, :cfg.vocab]).all():
+            fail("minicpm3 prefill: non-finite logits")
+        del p_caches, logits
+    batch = 128
+    with SubPhase(torch, "17 (c) decode"):
+        caches = init_cache(cfg, batch, MOE_DECODE_SLOTS, device=dev)
+        t_fill, walls, _ = decode_run(torch, np, model, prefill, decode_step, caches, batch,
+                                      MLA_DECODE_PROMPT, DECODE_GROUP, MLA_DECODE_STEPS, rng,
+                                      mla_slice)
+        flash_launches(torch, "minicpm3 decode", 0)
+        log(f"  decode: batch {batch}, latent cache {MOE_DECODE_SLOTS} slots (cut from 32,768; "
+            f"{caches.numel() * caches.element_size() / 1e9:.2f} GB), filled by "
+            f"{batch // DECODE_GROUP} prefills of {DECODE_GROUP} x {MLA_DECODE_PROMPT} in "
+            f"{t_fill:.3f} s")
+        log_steps("decode", walls, batch)
+        del caches
+    del model
+    with SubPhase(torch, "17 (c) f32 agreement"):
+        c32 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=MLA_AGREE_LAYERS)
+        card = make_lm(torch, c32, dev, 20)
+        host = Transformer(c32, generator=torch.Generator().manual_seed(0), device="cpu")
+        host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        n = MLA_AGREE_PROMPT + MLA_AGREE_STEPS
+        toks = np.random.default_rng(20).integers(0, cfg.vocab, (2, n))
+
+        def run(m, absorbed):
+            m.cfg = dataclasses.replace(c32, mla_absorbed=absorbed)
+            caches = init_cache(m.cfg, 2, n, device=m.device)
+            out = [m.prefill(toks[:, :MLA_AGREE_PROMPT], caches)[0]]
+            for p in range(MLA_AGREE_PROMPT, n):
+                out.append(m.decode_step(caches, toks[:, p:p + 1], p)[0])
+            return torch.stack(out), caches
+
+        got, c_abs = run(card, True)
+        naive, c_naive = run(card, False)
+        check_close(np, f"{cfg.name} f32 {MLA_AGREE_LAYERS} layers, absorbed vs naive logits",
+                    got, naive, F32_TOL)
+        check_close(np, f"{cfg.name} f32 {MLA_AGREE_LAYERS} layers, absorbed vs naive latent "
+                    "caches", c_abs, c_naive, F32_TOL)
+        want, c_host = run(host, True)
+        same_as_cpu(np, f"{cfg.name} f32 {MLA_AGREE_LAYERS} layers absorbed logits", got, want)
+        same_as_cpu(np, f"{cfg.name} f32 {MLA_AGREE_LAYERS} layers latent cache", c_abs, c_host)
+        del card, host
+
+
+def moonshot_serving(torch, np, dev) -> dict:
+    """(d) moonshot-v1-16b-a3b at full width, depth cut to 8 layers, bf16
+    on the kernel route."""
+    import dataclasses
+
+    from repro_torch.configs import moonshot_v1_16b_a3b
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models.transformer import init_cache, make_decode_step, make_prefill
+
+    cfg = dataclasses.replace(moonshot_v1_16b_a3b.FULL, n_layers=MOONSHOT_LAYERS)
+    rng = np.random.default_rng(21)
+    with SubPhase(torch, "17 (d) model"):
+        model = make_lm(torch, cfg, dev, 21)
+    prefill, decode_step = make_prefill(model), make_decode_step(model)
+    res = {}
+    with SubPhase(torch, "17 (d) prefill"):
+        p_toks = rng.integers(0, cfg.vocab, (1, MOONSHOT_PREFILL))
+        p_caches = init_cache(cfg, 1, MOONSHOT_PREFILL, device=dev)
+        reset_launch_counts()
+        logits, _ = prefill(p_toks, p_caches)
+        torch.cuda.synchronize()
+        lm_walls(torch, f"prefill batch 1 x {MOONSHOT_PREFILL} (depth cut from 48 to "
+                 f"{MOONSHOT_LAYERS})", lambda: prefill(p_toks, p_caches), MOONSHOT_PREFILL, 3)
+        res["launches"] = flash_launches(torch, "moonshot prefill", cfg.n_layers * 4)
+        if not torch.isfinite(logits[:, :cfg.vocab]).all():
+            fail("moonshot prefill: non-finite logits")
+        del p_caches, logits
+    with SubPhase(torch, "17 (d) decode"):
+        batch = MOONSHOT_DECODE_BATCH
+        caches = init_cache(cfg, batch, MOE_DECODE_SLOTS, device=dev)
+        reset_launch_counts()
+        t_fill, walls, _ = decode_run(torch, np, model, prefill, decode_step, caches, batch,
+                                      DECODE_PROMPT, DECODE_GROUP, MOONSHOT_STEPS, rng, gqa_slice)
+        res["launches"] += flash_launches(
+            torch, "moonshot decode", cfg.n_layers * (batch // DECODE_GROUP + MOONSHOT_STEPS))
+        log(f"  decode: batch {batch} (cut from 128), cache {MOE_DECODE_SLOTS} slots (cut from "
+            f"32,768; {caches.numel() * caches.element_size() / 1e9:.2f} GB), filled by "
+            f"{batch // DECODE_GROUP} prefills of {DECODE_GROUP} x {DECODE_PROMPT} in "
+            f"{t_fill:.3f} s")
+        log_steps("decode", walls, batch)
+        del caches
+    del model
+    return res
+
+
+def moe_mla_phase(torch, np, dev) -> dict:
+    """Phase 17: (a) granite serving, (b) granite's f32 layer-by-layer
+    agreement, (c) minicpm3, (d) moonshot.  Returns B6's launches on the
+    serving paths of (a) and (d) and the MoE dispatch's error."""
+    smi = smi_name_and_limit()
+    log(f"== phase 17 (a): granite-moe-3b-a800m FULL, bf16, kernel route ({smi})")
+    a = granite_serving(torch, np, dev)
+    log(f"== phase 17 (b): granite-moe-3b-a800m full width, f32, kernel vs plain route ({smi})")
+    with SubPhase(torch, "17 (b)"):
+        granite_agreement(torch, np, dev)
+    log(f"== phase 17 (c): minicpm3-4b FULL, bf16, absorbed MLA on the plain route ({smi})")
+    minicpm3_serving(torch, np, dev)
+    log(f"== phase 17 (d): moonshot-v1-16b-a3b full width, {MOONSHOT_LAYERS} layers, bf16 "
+        f"({smi})")
+    d = moonshot_serving(torch, np, dev)
+    return {"launches": a["launches"] + d["launches"], "moe_err": a["moe_err"]}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -3232,6 +3713,12 @@ def main() -> int:
     zoo = zoo_phase(torch, np, dev)
     log(f"  phase 15: {time.perf_counter() - t0:.1f} s")
 
+    # ----------------------------- 17. the MoE and MLA models (run before
+    # the kernel list of phase 14, which counts their launches)
+    t0 = time.perf_counter()
+    moe_mla = moe_mla_phase(torch, np, dev)
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+
     # ------------------------------------------------ 14. the kernel list
     log("== phase 14: kernels")
     counts["csr_round_residual"] += entry["serve_b1"] + tuned["b1"]
@@ -3243,7 +3730,7 @@ def main() -> int:
     counts["csr_round"] = legacy_counts["csr_round"] + entry["b3"] + tuned["b3"] + zoo["b3"]
     counts["csr_aggregate"] = gcn_counts["csr_aggregate"] + zoo["b4"]
     counts["embedding_bag"] = wd_counts["embedding_bag"]
-    counts["flash_attention"] = serving["launches"]
+    counts["flash_attention"] = serving["launches"] + moe_mla["launches"]
     for name, cnt in counts.items():
         if cnt <= 0:
             fail(f"kernel {name} was not launched on its path")

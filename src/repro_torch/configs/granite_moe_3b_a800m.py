@@ -1,8 +1,9 @@
 """granite-moe-3b-a800m [moe] — 32L d_model=1536 24H (GQA kv=8) d_ff=512,
 vocab=49155, MoE 40 experts top-8.  [hf:ibm-granite/granite-3.0-1b-a400m-base]
-The port's copy of ``repro.configs.granite_moe_3b_a800m``, configs only:
-the port's ``Transformer`` does not build a mixture-of-experts FFN yet
-(ROADMAP A.9.3) and raises for this config.
+The port's copy of ``repro.configs.granite_moe_3b_a800m``: the port's
+``Transformer`` serves it (the MoE FFN by index, GQA attention on B6);
+its train and dry-run cells are not ported (``make_cell`` raises naming
+ROADMAP A.9.4-A.9.5).
 
 The assignment header says "MoE 40e top-8" while its trailing comment
 says 32 experts; the explicit field (40 experts) is implemented.

@@ -1,8 +1,9 @@
 """minicpm3-4b [dense] — 62L d_model=2560 40H d_ff=6400 vocab=73448,
 multi-head latent attention (MLA).  [hf:openbmb/MiniCPM3-4B]
-The port's copy of ``repro.configs.minicpm3_4b``, configs only: the
-port's ``Transformer`` does not build MLA attention yet (ROADMAP A.9.3)
-and raises for this config.
+The port's copy of ``repro.configs.minicpm3_4b``: the port's
+``Transformer`` serves it (MLA attention on the plain route, absorbed
+with a cache); its train and dry-run cells are not ported
+(``make_cell`` raises naming ROADMAP A.9.4-A.9.5).
 """
 
 import os

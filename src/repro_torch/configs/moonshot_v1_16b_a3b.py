@@ -1,9 +1,10 @@
 """moonshot-v1-16b-a3b [moe] — 48L d_model=2048 16H (GQA kv=16) d_ff=1408,
 vocab=163840, MoE 64 experts top-6 (kimi/moonlight).
 [hf:moonshotai/Moonlight-16B-A3B]  The port's copy of
-``repro.configs.moonshot_v1_16b_a3b``, configs only: the port's
-``Transformer`` does not build a mixture-of-experts FFN yet (ROADMAP
-A.9.3) and raises for this config.
+``repro.configs.moonshot_v1_16b_a3b``: the port's ``Transformer`` serves
+it (the MoE FFN by index, GQA attention on B6 at head dim 128); its
+train and dry-run cells are not ported (``make_cell`` raises naming
+ROADMAP A.9.4-A.9.5).
 """
 
 import torch

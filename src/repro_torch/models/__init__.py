@@ -1,5 +1,6 @@
 """The port's models: the GNN zoo (GCN, GAT, DimeNet, MeshGraphNet, SAGE)
-inference, Wide & Deep serving and transformer serving (GQA, dense FFN)."""
+inference, Wide & Deep serving and transformer serving (GQA or MLA attention,
+dense or mixture-of-experts FFN)."""
 
 from repro_torch.models.gnn import (
     GAT,

@@ -114,9 +114,12 @@ def load_widedeep(model: WideDeep, params: Mapping) -> WideDeep:
 
 
 def load_transformer(model: Transformer, params: Mapping) -> Transformer:
-    """Load ``repro.models.transformer.init_params``'s pytree (GQA, dense
-    FFN): the stacked ``(L, ...)`` arrays of ``params["layers"]`` are
-    sliced into the model's per-layer parameters."""
+    """Load ``repro.models.transformer.init_params``'s pytree: the stacked
+    ``(L, ...)`` arrays of ``params["layers"]`` (GQA or MLA attention,
+    dense or MoE FFN: the experts' ``(L, E, ...)`` stacks and the shared
+    experts too) are sliced into the model's per-layer parameters.  A key
+    missing or extra, or a shape that differs (another expert count, say),
+    raises ``ValueError`` naming it."""
     for name in ("embed", "final_norm", "lm_head"):
         _copy(getattr(model, name), params[name], name)
     layers = params["layers"]

@@ -329,6 +329,20 @@ def test_environment_info_names_the_device_and_gates_timing():
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
+@pytest.fixture
+def scratch_registry():
+    """The suites a test registers leave the registry with it: a later
+    module in the same worker (``test_torch_bench_suites.py`` runs every
+    registered suite) must not find them."""
+    from repro_torch.bench import registry
+
+    saved = dict(registry._REGISTRY)
+    yield
+    registry._REGISTRY.clear()
+    registry._REGISTRY.update(saved)
+
+
+@pytest.mark.usefixtures("scratch_registry")
 def test_registry_runs_suites_and_propagates_failures():
     @register_suite("_test_ok", description="test-only")
     def ok(fast, device):
@@ -356,6 +370,7 @@ def test_registry_runs_suites_and_propagates_failures():
     assert run_suites(report2, only=["_test_errrec"], fast=True) == 1
 
 
+@pytest.mark.usefixtures("scratch_registry")
 def test_registry_duplicate_record_key_fails_suite_not_driver():
     @register_suite("_test_dup", description="test-only")
     def dup(fast, device):
@@ -374,6 +389,7 @@ def test_registry_duplicate_record_key_fails_suite_not_driver():
     assert [r.suite for r in report.records][-1] == "_test_after_dup"
 
 
+@pytest.mark.usefixtures("scratch_registry")
 def test_registry_hands_each_suite_the_pass_device():
     seen = []
 

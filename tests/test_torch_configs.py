@@ -89,9 +89,13 @@ class TestRegistry:
                 spec.make_probe_cell(spec.shapes[0], 1)
 
     @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "minicpm3-4b"])
-    def test_moe_and_mla_models_raise_naming_a93(self, arch):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9\.3"):
-            Transformer(registry.get_arch(arch).reduced_config, device="cpu")
+    def test_moe_and_mla_models_build_and_run_a_forward(self, arch):
+        cfg = registry.get_arch(arch).reduced_config
+        model = Transformer(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12))
+        logits, caches = model(toks)
+        assert caches is None and logits.shape == (2, 12, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
 
 
 class TestCells:

@@ -275,11 +275,12 @@ class TestConfigs:
 
     @pytest.mark.parametrize("cfg", [jax_granite.REDUCED, jax_minicpm3.REDUCED],
                              ids=lambda c: c.name)
-    def test_moe_and_mla_are_not_ported_yet(self, cfg):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            pt.Transformer(_port_config(cfg), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            pt.init_cache(_port_config(cfg), 1, 8, device="cpu")
+    def test_moe_and_mla_models_build_and_prefill_like_the_reference(self, cfg):
+        params, model = _setup(cfg, _port_config(cfg))
+        (jl, jc), (pl, pc) = _prefill_both(cfg, params, model, _tokens(cfg, (B, L), 10))
+        assert pc.shape == jc.shape == tuple(pt.init_cache(model.cfg, B, S, device="cpu").shape)
+        _close(pl, jl)
+        _close(pc, jc)
 
     def test_configs_are_the_reference_configs(self):
         for mine, ref in ((h2o_danube_1_8b.FULL, jax_danube.FULL),
