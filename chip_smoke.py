@@ -145,7 +145,7 @@ Phases (each raises on failure, so the script exits non-zero):
     with the ``kernel`` serve engine's top-10 lists, a ``remesh`` of the
     solve's state onto a one-device mesh, bit for bit; wall per round
     beside B1's;
-14. the kernel list, printed after phases 15 and 17 have run: launches of each
+14. the kernel list, printed after phases 15, 17 and 18 have run: launches of each
     kernel on its path (phases 4-5, 11 (b)-(e) and 13 (a) for
     ``csr_round_residual``, phases 4-5 for ``lp_round``, phases 6, 11 (d),
     13 (a) and 15 (a, b) for ``csr_round``, phases 9 and 15 (c) for
@@ -206,6 +206,32 @@ Phases (each raises on failure, so the script exits non-zero):
     ``rtol=1e-4, atol=1e-5``; (d) ``moonshot-v1-16b-a3b`` at full width
     with 8 of its 48 layers: prefill of 8,192 tokens, decode at batch 32
     (cut from 128) on 4,096 slots, B6 at D = 128, 64 experts top-6.
+
+18. training (run before phase 14), each sub-phase's seconds and peak
+    device memory printed, every cut of a published cell named in its log
+    line: (a) ``csr_aggregate``'s backward on the transposed operators
+    (``ogb_products`` at S = 16, SAGE's two hops at S = 64) held to its
+    plain version at ``F32_TOL``, the planted faults rejected, timed beside
+    the plain version, ``torch.sparse.mm`` on the transposed CSR and the
+    byte bound; (b) the GNN train cells at the reference's full sizes
+    through ``get_arch(a).make_cell(s).step_fn`` on random data at the
+    cells' shapes: ``gcn-cora`` at ``full_graph_sm``, ``molecule`` and
+    ``ogb_products``, ``gat-cora`` at ``full_graph_sm`` and
+    ``ogb_products``, the SAGE derivations at ``minibatch_lg``, ``dimenet``
+    and ``meshgraphnet`` at ``molecule``; GCN and SAGE one step on the
+    kernel route (B4 2 + 1 and 2 + 2 launches) against B4's plain version
+    (loss and every gradient at ``F32_TOL``), then 20 timed steps with the
+    loss falling; at ``full_graph_sm`` and ``molecule`` the card against
+    the CPU at ``rtol=1e-4, atol=1e-5`` (MeshGraphNet's gradient leaves
+    that miss it element for element, ROADMAP C.3: in norm,
+    ``‖Δ‖₂ ≤ 1e-3·‖g‖₂``); every loss and gradient finite;
+    (c) ``wide-deep`` ``FULL`` at ``train_batch`` (65,536), 5 steps; (d)
+    ``h2o-danube-1.8b`` and ``granite-moe-3b-a800m`` ``FULL`` at
+    ``train_4k``'s 4,096 tokens with the batch cut to what fits
+    (``LM_TRAIN_BATCHES``), 3 steps, walls, tokens/s and 6·N·tokens over
+    the bf16 peak (not gated); (e) ``python -m repro_torch run`` on
+    docs/runspec.md's train example with a ``ckpt_dir``: one retry, the
+    final checkpoint bit for bit a clean run's, and a longer rerun resumed.
 
 Phases 4, 6, 7, 9, 10, 10c, 11 and 17 (a) each also trace calls with
 ``torch.profiler`` (after one untraced warm-up call).
@@ -1524,9 +1550,6 @@ def entry_point_phase(torch, np, dev, bundle, main_solve, b1_ms, b3_ms) -> dict:
 # emit, with the queue item or the cards each waits for
 BENCH_HOST_CLASS = "h100-1card-sandbox"
 BENCH_NOT_PORTED = {
-    "lp_on_graph/dhlp2_lp@dense": "A.9.4",
-    "lp_on_graph/dhlp2_lp_csr@sparse": "A.9.4",
-    "lp_on_graph/gcn@gcn": "A.9.4",
     "roofline/dhlp-bio/scale_1m@single": "A.9.5",
     "roofline/dhlp-bio/scale_20m@single": "A.9.5",
     "roofline/dhlp-bio/scale_1m@multi": "A.9.5",
@@ -1679,6 +1702,37 @@ def bench_phase() -> None:
         f"{d['qps_streaming']:.1f}; overhead_frac {d['overhead_frac']:.4f}, "
         f"overhead_frac_streaming {d['overhead_frac_streaming']:.4f} "
         f"({ab['params']['queries']} queries a burst, best of 5)")
+
+
+def lp_on_graph_launches(torch, dev) -> tuple:
+    """Phase 12 (d): the ``lp_on_graph`` suite's fast pass in this process
+    on the card, its strict metrics held to ``benchmarks/baseline.json``
+    as in (a); returns its GCN's B4 (forward, backward) launches: 60 AdamW
+    steps, 2 + 1 a step, and the final forward's 2."""
+    from repro_torch.bench.compare import compare_reports
+    from repro_torch.bench.report import load_report
+    from repro_torch.bench.schema import record_key
+    from repro_torch.bench.suites import lp_on_graph
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    log("== phase 12 (d): the lp_on_graph suite in this process (B4 launches counted)")
+    reset_launch_counts()
+    recs = [r.to_dict() for r in lp_on_graph.records(fast=True, device=dev)]
+    counts = launch_counts()
+    got = (counts["csr_aggregate"], counts["csr_aggregate_backward"])
+    if got != (2 * 60 + 2, 60):
+        fail(f"lp_on_graph: B4 launched {got} (forward, backward), expected (122, 60)")
+    base = load_report(str(ROOT / "benchmarks" / "baseline.json"))
+    keys = {record_key(r) for r in recs}
+    base["records"] = [r for r in base["records"] if record_key(r) in keys]
+    res = compare_reports(base, {"environment": {}, "records": recs})
+    if not res.ok or res.compared != 3:
+        fail(f"lp_on_graph in process vs benchmarks/baseline.json: {res.regressions}")
+    for r in recs:
+        log(f"    {record_key(r)}: " + ", ".join(f"{m} {r['derived'][m]:g}" for m in r["strict"])
+            + f" (strict gate PASS); {r['stats']['median_s'] * 1e3:.1f} ms")
+    log(f"  B4 launches: {got[0]} forward, {got[1]} backward")
+    return got
 
 
 # phase 13: the autotune sweep and the sharded engine.  In-process phases
@@ -2859,6 +2913,517 @@ def moe_mla_phase(torch, np, dev) -> dict:
     return {"launches": a["launches"] + d["launches"], "moe_err": a["moe_err"]}
 
 
+# phase 18: training (queue A.9.4).  Runs before phase 14's kernel list,
+# which counts B4's forward and backward launches here.  Each cut of a
+# published cell is a constant, named in its log line.
+TRAIN_STEPS = 20  # (b): timed steps of the GCN and SAGE cells
+TRAIN_STEPS_OTHER = 5  # (b): steps of the GAT, DimeNet and MeshGraphNet cells; (c) W&D
+LM_TRAIN_STEPS = 3  # (d)
+LM_TRAIN_SEQ = 4096  # train_4k's sequence, not cut
+LM_TRAIN_BATCHES = {"h2o-danube-1.8b": (8, 4, 2), "granite-moe-3b-a800m": (4, 2, 1)}  # cut from 256
+CLI_TRAIN_STEPS, CLI_TRAIN_FAULT, CLI_RESUME_STEPS = 12, 5, 15  # (e): docs/runspec.md's example
+# (b): MeshGraphNet's gradient leaves that miss MODEL_TOL card vs CPU
+# element for element (ROADMAP C.3: against an f64 run the CPU's f32 is
+# 10x further off than the card's, tools/train_grad_precision.py) are held
+# in norm at this rtol: a wrong or missing term shows at O(1)
+MGN_GRAD_NORM_RTOL = 1e-3
+
+
+def tree_close(torch, np, name, got, want, tol) -> float:
+    """Two trees of tensors (or a loss) leaf for leaf: finite, within ``tol``."""
+    from repro_torch.optim import tree_leaves
+
+    err = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        a, b = a.detach().float(), b.detach().float().to(a.device)
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{name}: leaf {i} holds non-finite values")
+        err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+        if tuple(a.shape) != tuple(b.shape) or not torch.allclose(a, b, **tol):
+            fail(f"{name}: leaf {i} {tuple(a.shape)} differs, max|Δ| {err:.3e}")
+    return err
+
+
+def all_finite(torch, name, loss, grads) -> None:
+    from repro_torch.optim import tree_leaves
+
+    if not bool(torch.isfinite(loss)) or not all(bool(torch.isfinite(g).all())
+                                                 for g in tree_leaves(grads)):
+        fail(f"{name}: a non-finite loss or gradient")
+
+
+def train_run(torch, name, step, params, state, batch, steps) -> tuple:
+    """``steps`` train steps: each loss and wall (host clock to a
+    synchronize); the loss must fall.  Returns (params, state, walls)."""
+    losses, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))  # synchronizes
+        walls.append(time.perf_counter() - t0)
+    if not all(np_isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{name}: losses {losses} not finite or not falling")
+    w = sorted(walls[1:]) or walls
+    log(f"    {steps} steps: loss {losses[0]:.5f} -> {losses[-1]:.5f}; wall per step "
+        f"{walls[0] * 1e3:.2f} ms first, median of the rest {w[len(w) // 2] * 1e3:.3f} ms")
+    return params, state, walls
+
+
+def np_isfinite(x: float) -> bool:
+    return x == x and abs(x) != float("inf")
+
+
+def gnn_train_batch(torch, np, dev, cell, shape, graph=None, seed=0) -> dict:
+    """A batch under the cell's keys at its shapes, on the card: the graph
+    ``(src, dst)`` given or drawn at random, GCN weights ``gcn_norm``'s,
+    features and targets standard normal, labels uniform, half the nodes
+    labelled; SAGE's hops drawn at random (not sampled from a graph) with
+    distinct frontiers of local ids, 90 % of the slots live; DimeNet's
+    batch real molecules (:func:`dimenet_batch`)."""
+    from repro_torch.configs import cells
+    from repro_torch.graph.segment import gcn_norm
+
+    specs = cell.input_specs[2]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for k, s in specs.items():
+        if s.dtype == torch.float32:
+            out[k] = torch.randn(s.shape, generator=gen, device=dev)
+    n = next(iter(specs.values())).shape[0]
+    if "src" in specs:
+        e = specs["src"].shape[0]
+        if graph is not None:
+            out["src"], out["dst"] = graph
+        else:
+            out["src"] = torch.randint(0, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+            off = torch.randint(1, n, (e,), generator=gen, device=dev, dtype=torch.int32)
+            out["dst"] = ((out["src"] + off) % n).int()
+    if "w" in specs:
+        out["w"] = gcn_norm(out["src"], out["dst"], torch.ones(e, device=dev), n)
+    if "labels" in specs:
+        n_cls = cells.GNN_SHAPES[shape]["n_classes"]
+        out["labels"] = torch.randint(0, n_cls, specs["labels"].shape, generator=gen,
+                                      device=dev, dtype=torch.int32)
+    if "label_mask" in specs:
+        out["label_mask"] = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+    if "graph_ids" in specs:
+        g = specs["targets"].shape[0]
+        out["graph_ids"] = torch.sort(torch.randint(0, g, (n,), generator=gen, device=dev,
+                                                    dtype=torch.int32)).values
+    if "z" in specs:
+        return dimenet_batch(torch, np, dev, specs)
+    if "h0_f" in specs:
+        b, f1 = specs["h0_n"].shape
+        perm = torch.randperm(n, generator=gen, device=dev).int()
+        out["h0_f"], out["h1_f"] = perm[:b].contiguous(), perm[b: b + b * f1].contiguous()
+        for k in ("h0", "h1"):
+            shp = specs[f"{k}_n"].shape
+            out[f"{k}_n"] = torch.randint(0, n, shp, generator=gen, device=dev, dtype=torch.int32)
+            out[f"{k}_m"] = torch.rand(shp, generator=gen, device=dev) < 0.9
+    return out
+
+
+def dimenet_batch(torch, np, dev, specs) -> dict:
+    """DimeNet's ``molecule`` batch from ``molecule_batch`` (its geometry
+    and targets): the 128 molecules' edges both ways fill the cell's
+    16,384 edges, the nodes past the 3,840 real ones are isolated (graph
+    127, species 0: no edge reaches them, their energy is 0), the
+    triplets ``build_triplets``' capped at the cell's 65,536."""
+    from repro_torch.data.graphs import molecule_batch
+    from repro_torch.models.gnn import build_triplets
+
+    n, e, t = specs["z"].shape[0], specs["src"].shape[0], specs["tri_kj"].shape[0]
+    g = specs["targets"].shape[0]
+    b = molecule_batch(g, nodes_per=30, edges_per=64, seed=0)
+    src, dst = np.concatenate([b["src"], b["dst"]]), np.concatenate([b["dst"], b["src"]])
+    if src.shape[0] != e or b["z"].shape[0] > n:
+        fail(f"dimenet batch: {src.shape[0]} edges / {b['z'].shape[0]} nodes for the cell's {e} / {n}")
+    kj, ji, mask = build_triplets(src, dst, b["z"].shape[0], max_triplets=t)
+
+    def pad(a, fill):
+        out = np.full((n,) + a.shape[1:], fill, a.dtype)
+        out[: a.shape[0]] = a
+        return out
+
+    arrays = {"z": pad(b["z"], 0), "pos": pad(b["pos"], 0.0), "src": src, "dst": dst,
+              "tri_kj": kj, "tri_ji": ji, "tri_mask": mask.astype(np.float32),
+              "graph_ids": pad(b["graph_ids"], g - 1), "targets": b["targets"]}
+    log(f"  DimeNet molecule batch: molecule_batch({g}): {b['z'].shape[0]} nodes padded to {n}, "
+        f"{e} directed edges, {int(mask.sum())} triplets in the cell's {t}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in arrays.items()}
+
+
+def b4_backward_checks(torch, np, tag, t, G) -> dict:
+    """B4 on a transposed operator ``t`` (``CSRTranspose``) against its
+    plain version at ``F32_TOL``, the planted faults rejected there, timed
+    beside the plain version and ``torch.sparse.mm`` on the transposed CSR,
+    with the byte bound.  Returns the numbers for the kernel list."""
+    from repro_torch.kernels.segment_reduce import csr_aggregate_op, csr_aggregate_ref
+
+    m, d = (int(x) for x in t.nbr.shape)
+    s = int(G.shape[1])
+    t0 = time.perf_counter()
+    out = csr_aggregate_op(t.nbr, t.wgt, G, live=t.live)
+    torch.cuda.synchronize()
+    err = check_close(np, f"{tag} (M={m}, D={d}, S={s}, {t.live.slots} live slots)", out,
+                      csr_aggregate_ref(t.nbr, t.wgt, G), F32_TOL)
+    round_fault_checks(torch, np, tag, t.nbr, t.live, G,
+                       lambda nbr, live, F: csr_aggregate_op(nbr, t.wgt, F, live=live),
+                       lambda F: csr_aggregate_ref(t.nbr, t.wgt, F))
+    keep = t.wgt != 0
+    a_t = torch.sparse_coo_tensor(
+        torch.stack([torch.nonzero(keep)[:, 0], t.nbr[keep].long()]), t.wgt[keep],
+        (m, int(G.shape[0])), check_invariants=True).coalesce().to_sparse_csr()
+    del keep
+    check_close(np, f"{tag} vs torch.sparse.mm(Aᵀ as CSR)", out, torch.sparse.mm(a_t, G), F32_TOL)
+    ms = cuda_ms(torch, lambda: csr_aggregate_op(t.nbr, t.wgt, G, live=t.live))
+    plain_ms = cuda_ms(torch, lambda: csr_aggregate_ref(t.nbr, t.wgt, G), warmup=1, iters=2)
+    lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(a_t, G))
+    # G read and the output written once, the live (nbr, wgt) slots, the lengths
+    bms, by = bound(2.0 * t.live.slots * s, 4.0 * (int(G.shape[0]) + m) * s
+                    + 8.0 * t.live.slots + 4.0 * m)
+    log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sparse.mm(Aᵀ CSR) "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}); these checks {time.perf_counter() - t0:.1f} s")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms, "bound_ms": bms,
+            "by": by}
+
+
+def kernel_vs_plain_step(torch, np, name, cell, plain_cell, params, batch, fwd, bwd) -> None:
+    """One step's loss and every gradient on the kernel route (B4 forward
+    and backward, exactly ``fwd`` and ``bwd`` launches) against the same
+    step on B4's plain version, at ``F32_TOL``."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.optim import value_and_grad
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(cell.step_fn.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    after = launch_counts()
+    got = (after["csr_aggregate"] - before["csr_aggregate"],
+           after["csr_aggregate_backward"] - before["csr_aggregate_backward"])
+    if got != (fwd, bwd) or sum(after.values()) - sum(before.values()) != fwd + bwd:
+        fail(f"{name}: a step launched {got} (forward, backward) B4, expected {(fwd, bwd)}")
+    all_finite(torch, name, loss, grads)
+    t0 = time.perf_counter()
+    p_loss, p_grads = value_and_grad(plain_cell.step_fn.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    e1 = tree_close(torch, np, f"{name} loss, kernel vs plain", loss, p_loss, F32_TOL)
+    e2 = tree_close(torch, np, f"{name} gradients, kernel vs plain", grads, p_grads, F32_TOL)
+    log(f"  {name}: B4 {fwd} forward + {bwd} backward launches a step; loss {float(loss):.6f}, "
+        f"kernel vs plain route max|Δ| loss {e1:.3e}, gradients {e2:.3e} (F32_TOL); loss and "
+        f"gradients {t_kernel:.2f} s on the kernel route, {t_plain:.2f} s on the plain (first "
+        "calls)")
+
+
+def card_vs_cpu_step(torch, np, name, cell, params, batch, norm_rtol=None) -> None:
+    """One step's loss and gradients on the card against the same cell on
+    the CPU (the plain versions) at ``MODEL_TOL``, element for element.
+    With ``norm_rtol`` (MeshGraphNet, ROADMAP C.3), a gradient leaf past
+    that is held in norm instead, ``‖card − CPU‖₂ ≤ norm_rtol · ‖CPU‖₂``;
+    such leaves are counted and their largest differences printed."""
+    from repro_torch.optim import tree_leaves, tree_map, value_and_grad
+
+    loss, grads = value_and_grad(cell.step_fn.loss_fn, params, batch)
+    cpu = lambda t: t.detach().cpu().clone()  # noqa: E731
+    c_loss, c_grads = value_and_grad(cell.step_fn.loss_fn, tree_map(cpu, params),
+                                     {k: v.cpu() for k, v in batch.items()})
+    all_finite(torch, f"{name} card", loss, grads)
+    e1 = tree_close(torch, np, f"{name} loss, card vs CPU", loss, c_loss, MODEL_TOL)
+    pairs = [(a.detach().cpu(), b) for a, b in zip(tree_leaves(grads), tree_leaves(c_grads))]
+    e2 = max(float((a - b).abs().max()) for a, b in pairs)
+    missed = [i for i, (a, b) in enumerate(pairs) if not torch.allclose(a, b, **MODEL_TOL)]
+    if missed and norm_rtol is None:
+        i = missed[0]
+        fail(f"{name}: gradient leaf {i} {tuple(pairs[i][0].shape)} card vs CPU max|Δ| "
+             f"{float((pairs[i][0] - pairs[i][1]).abs().max()):.3e}")
+    worst, worst_i = 0.0, None
+    for i in missed:
+        g, c = pairs[i]
+        rel = float(torch.linalg.vector_norm(g - c) / torch.linalg.vector_norm(c).clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_i = rel, i
+        if rel > norm_rtol:
+            fail(f"{name}: gradient leaf {i} {tuple(g.shape)} card vs CPU ‖Δ‖/‖g‖ {rel:.3e} "
+                 f"(max|Δ| {float((g - c).abs().max()):.3e})")
+    tail = ""
+    if missed:
+        g, c = pairs[worst_i]
+        tail = (f"; {len(missed)} of {len(pairs)} leaves past it element for element (C.3), "
+                f"held in norm: ‖Δ‖/‖g‖ at most {worst:.3e} (leaf {worst_i} "
+                f"{tuple(g.shape)}, max|Δ| {float((g - c).abs().max()):.3e} of max|g| "
+                f"{float(c.abs().max()):.3e}; gate {norm_rtol})")
+    log(f"  {name}: card vs CPU max|Δ| loss {e1:.3e}, gradients {e2:.3e} "
+        f"(rtol=1e-4, atol=1e-5){tail}")
+
+
+def gnn_train_phase(torch, np, dev) -> dict:
+    """Phase 18 (a)-(b): the GNN train cells at the reference's full sizes
+    through ``get_arch(a).make_cell(s).step_fn``, with B4's backward on the
+    transposed operators checked at ``ogb_products`` and SAGE's hops."""
+    import dataclasses
+
+    from repro_torch.configs import cells, gat_cora, gcn_cora, get_arch
+    from repro_torch.configs.cells import pad512
+    from repro_torch.graph.structures import erdos_renyi
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import gnn
+    from repro_torch.optim import value_and_grad
+
+    res = {"b4_bwd": None}
+    reset_launch_counts()
+
+    def cell_pair(arch, shape):
+        cfg0 = {"gcn-cora": gcn_cora.FULL, "gat-cora": gat_cora.FULL}[arch]
+        return get_arch(arch).make_cell(shape), cells.gnn_cell(arch, cfg0, shape, use_kernel=False)
+
+    def init(cell, seed=0):
+        return cell.step_fn.init(torch.Generator(device=dev).manual_seed(seed), dev)
+
+    # ---- ogb_products: one erdos_renyi graph at the cell's padded counts
+    sh = cells.GNN_SHAPES["ogb_products"]
+    n, e = pad512(sh["n_nodes"]), pad512(sh["n_edges"])
+    t0 = time.perf_counter()
+    g = erdos_renyi(n, e, seed=0, device=dev)
+    ogb = tuple(torch.from_numpy(a).to(dev) for a in (g.src, g.dst))
+    del g
+    torch.cuda.synchronize()
+    log(f"  ogb_products graph: erdos_renyi({n}, {e}, seed=0) in "
+        f"{time.perf_counter() - t0:.1f} s (the cells' padded node and edge counts)")
+
+    for arch, shape, graph in (("gcn-cora", "full_graph_sm", None), ("gcn-cora", "molecule", None),
+                               ("gcn-cora", "ogb_products", ogb)):
+        with SubPhase(torch, f"GCN {shape} training"):
+            cell, plain = cell_pair(arch, shape)
+            batch = gnn_train_batch(torch, np, dev, cell, shape, graph)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            op = cell.step_fn.prepare(batch)
+            torch.cuda.synchronize()
+            m, d = (int(x) for x in op.nbr.shape)
+            log(f"  gcn-cora {shape} (cell meta {cell.meta}): padded CSR {m} x {d} and its "
+                f"transpose {tuple(op.transpose.nbr.shape)} built on the card once, in "
+                f"{time.perf_counter() - t0:.2f} s ({op.live.slots} live slots)")
+            params, state = init(cell)
+            kernel_vs_plain_step(torch, np, f"GCN {shape} step", cell, plain, params, batch, 2, 1)
+            if shape == "ogb_products":
+                G = torch.randn((n, 16), generator=torch.Generator(device=dev).manual_seed(1),
+                                device=dev)
+                log("== phase 18 (a): csr_aggregate's backward at ogb_products (the transposed "
+                    "GCN operator, S = 16: layer 2's gradient)")
+                res["b4_bwd"] = b4_backward_checks(torch, np, "csr_aggregate backward (Aᵀ) "
+                                                   "ogb_products", op.transpose, G)
+                del G
+            else:
+                card_vs_cpu_step(torch, np, f"GCN {shape} step", cell, params, batch)
+            train_run(torch, f"GCN {shape}", cell.step_fn, params, state, batch, TRAIN_STEPS)
+            del op, batch, params, state
+
+    for shape, graph in (("full_graph_sm", None), ("ogb_products", ogb)):
+        with SubPhase(torch, f"GAT {shape} training"):
+            cell = get_arch("gat-cora").make_cell(shape)
+            batch = gnn_train_batch(torch, np, dev, cell, shape, graph)
+            params, state = init(cell)
+            before = launch_counts()
+            loss, grads = value_and_grad(cell.step_fn.loss_fn, params, batch)
+            all_finite(torch, f"GAT {shape} step", loss, grads)
+            if launch_counts() != before:
+                fail(f"GAT {shape}: launched a kernel of the port")
+            del grads
+            if shape == "full_graph_sm":
+                card_vs_cpu_step(torch, np, f"GAT {shape} step", cell, params, batch)
+            log(f"  gat-cora {shape} (cell meta {cell.meta}): loss {float(loss):.6f}, every "
+                f"gradient finite; edge chunks of {gnn.GAT_EDGE_CHUNK} checkpointed")
+            train_run(torch, f"GAT {shape}", cell.step_fn, params, state, batch,
+                      TRAIN_STEPS_OTHER)
+            del batch, params, state
+    del ogb
+
+    for arch in ("gat-cora", "gcn-cora"):
+        with SubPhase(torch, f"SAGE ({arch}) minibatch_lg training"):
+            cell, plain = cell_pair(arch, "minibatch_lg")
+            batch = gnn_train_batch(torch, np, dev, cell, "minibatch_lg")
+            hops = cell.step_fn.prepare(batch)
+            log(f"  SAGE from {arch} at minibatch_lg (cell meta {cell.meta}): random hops at the "
+                f"cell's padded sizes, "
+                + ", ".join(f"{h.nbr.shape[0]}x{h.nbr.shape[1]} (transpose "
+                            f"{tuple(h.transpose.nbr.shape)})" for h in hops))
+            params, state = init(cell)
+            kernel_vs_plain_step(torch, np, f"SAGE {arch} step", cell, plain, params, batch, 2, 2)
+            if arch == "gcn-cora":
+                G = torch.randn((batch["feats"].shape[0], 64),
+                                generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+                for k, h in enumerate(hops):
+                    G_k = G[: h.nbr.shape[0]].contiguous()
+                    log(f"  csr_aggregate's backward on SAGE hop {k}'s transpose")
+                    r = b4_backward_checks(torch, np, f"csr_aggregate backward (Aᵀ) SAGE hop {k}",
+                                           h.transpose, G_k)
+                    res["b4_bwd"]["err"] = max(res["b4_bwd"]["err"], r["err"])
+            train_run(torch, f"SAGE {arch}", cell.step_fn, params, state, batch, TRAIN_STEPS)
+            del batch, params, state, hops
+
+    for arch in ("dimenet", "meshgraphnet"):
+        with SubPhase(torch, f"{arch} molecule training"):
+            cell = get_arch(arch).make_cell("molecule")
+            batch = gnn_train_batch(torch, np, dev, cell, "molecule")
+            params, state = init(cell)
+            card_vs_cpu_step(torch, np, f"{arch} molecule step", cell, params, batch,
+                             norm_rtol=MGN_GRAD_NORM_RTOL if arch == "meshgraphnet" else None)
+            train_run(torch, f"{arch} molecule", cell.step_fn, params, state, batch,
+                      TRAIN_STEPS_OTHER)
+            del batch, params, state
+    counts = launch_counts()
+    res["b4_fwd"], res["b4_bwd_launches"] = counts["csr_aggregate"], counts["csr_aggregate_backward"]
+    return res
+
+
+def recsys_train_phase(torch, np, dev) -> None:
+    """Phase 18 (c): Wide & Deep ``FULL`` at ``train_batch``, not cut."""
+    from repro_torch.configs import get_arch, wide_deep
+    from repro_torch.data.recsys import CTRDataConfig, sample_ctr_batch
+
+    with SubPhase(torch, "wide-deep FULL train_batch"):
+        cell = get_arch("wide-deep").make_cell("train_batch")
+        b = cell.meta["examples"]
+        cfg = wide_deep.FULL
+        dcfg = CTRDataConfig(cfg.n_sparse, cfg.n_dense, cfg.vocab_per_field, seed=0)
+        params, state = cell.step_fn.init(torch.Generator(device=dev).manual_seed(0), dev)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in sample_ctr_batch(dcfg, b, s).items()}
+                   for s in range(TRAIN_STEPS_OTHER)]
+        losses, walls = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = cell.step_fn(params, state, batch)
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t0)
+        if not all(np_isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"wide-deep train_batch: losses {losses}")
+        log(f"  wide-deep FULL train_batch ({b} examples, the {cfg.total_vocab} x "
+            f"{cfg.embed_dim} table's gradient dense, plain lookups): losses "
+            + ", ".join(f"{x:.5f}" for x in losses) + "; walls "
+            + ", ".join(f"{w * 1e3:.1f}" for w in walls) + " ms")
+        del params, state, batches
+
+
+def lm_train_phase(torch, np, dev) -> dict:
+    """Phase 18 (d): ``h2o-danube-1.8b`` and ``granite-moe-3b-a800m``
+    ``FULL`` at ``train_4k``'s sequence, the batch cut to the first of
+    ``LM_TRAIN_BATCHES`` that fits."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import LMDataConfig, sample_batch
+
+    out = {}
+    for arch, batches in LM_TRAIN_BATCHES.items():
+        cell = get_arch(arch).make_cell("train_4k")
+        cfg = get_arch(arch).full_config
+        for batch in batches:
+            try:
+                with SubPhase(torch, f"{arch} FULL train_4k batch {batch}"):
+                    params, state = cell.step_fn.init(torch.Generator(device=dev).manual_seed(0),
+                                                      dev)
+                    dcfg = LMDataConfig(vocab=cfg.vocab, batch=batch, seq_len=LM_TRAIN_SEQ)
+                    losses, walls = [], []
+                    for s in range(LM_TRAIN_STEPS):
+                        b = {k: torch.from_numpy(v).to(dev)
+                             for k, v in sample_batch(dcfg, s).items()}
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        params, state, loss = cell.step_fn(params, state, b)
+                        losses.append(float(loss))
+                        walls.append(time.perf_counter() - t0)
+                    tokens = batch * LM_TRAIN_SEQ
+                    best = min(walls)
+                    mfu = 6.0 * cfg.active_param_count() * tokens / best / PEAK_BF16_FLOPS
+                    if not all(np_isfinite(x) for x in losses):
+                        fail(f"{arch} train_4k: losses {losses}")
+                    log(f"  {arch} FULL train_4k: seq {LM_TRAIN_SEQ}, batch {batch} (cut from "
+                        f"256; {batches[:batches.index(batch)] or 'none'} did not fit before), "
+                        f"bf16 parameters, f32 AdamW moments, layers checkpointed, attention on "
+                        f"the plain route: losses " + ", ".join(f"{x:.4f}" for x in losses)
+                        + "; walls " + ", ".join(f"{w:.3f}" for w in walls)
+                        + f" s; {tokens / best:,.0f} tokens/s at the best step; "
+                        f"6·N_active·tokens / step time = {mfu:.3f} of the bf16 peak (not gated)")
+                    out[arch] = {"batch": batch, "walls": walls}
+                    del params, state, b
+                break
+            except torch.cuda.OutOfMemoryError:
+                params = state = b = None
+                torch.cuda.empty_cache()
+                log(f"  {arch} train_4k at batch {batch} did not fit in device memory")
+        if arch not in out:
+            fail(f"{arch} train_4k: no batch of {batches} fit")
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_cli_phase(torch, np) -> None:
+    """Phase 18 (e): ``python -m repro_torch run`` on docs/runspec.md's
+    train example (``gcn-cora``, ``inject_fault [5]``) with a ``ckpt_dir``:
+    one retry, final parameters bit for bit a clean run's; then more steps
+    resume from the checkpoint."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+
+    root = OUT_ROOT / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    def run(name, steps, faults):
+        spec = {"run_id": f"train-{name}", "train": {
+            "arch": "gcn-cora", "steps": steps, "batch": 4, "inject_fault": faults,
+            "ckpt_dir": str(root / name / "ckpt")}}
+        path = root / f"{name}.json"
+        path.write_text(json.dumps(spec))
+        proc, wall = run_cli(["run", str(path), "--device", CLI_DEVICE, "--results-root",
+                              str(root / "results")], timeout=300)
+        if proc.returncode != 0:
+            fail(f"train CLI {name}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        art = json.loads((root / "results" / f"train-{name}" / "train.json").read_text())
+        log(f"  {name}: exit 0 in {wall:.1f} s; " + next(
+            ln for ln in proc.stdout.splitlines() if ln.startswith("[train] gcn-cora")))
+        return art
+
+    def final(name):
+        mgr = CheckpointManager(str(root / name / "ckpt"))
+        s = mgr.steps()[-1]
+        return s, [np.load(Path(mgr._step_dir(s)) / r["file"]) for r in mgr.manifest(s)["leaves"]]
+
+    faulty = run("fault", CLI_TRAIN_STEPS, [CLI_TRAIN_FAULT])
+    clean = run("clean", CLI_TRAIN_STEPS, [])
+    if (faulty["retries"], clean["retries"]) != (1, 0):
+        fail(f"train CLI: retries {faulty['retries']} / {clean['retries']}, expected 1 / 0")
+    (sf, lf), (sc, lc) = final("fault"), final("clean")
+    if sf != sc or len(lf) != len(lc) or not all(np.array_equal(a, b) for a, b in zip(lf, lc)):
+        fail("train CLI: the retried run's final parameters differ from the clean run's")
+    log(f"  the retried run's final checkpoint (step {sf}, {len(lf)} leaves) equals the clean "
+        "run's bit for bit")
+    resumed = run("fault", CLI_RESUME_STEPS, [CLI_TRAIN_FAULT])
+    if not resumed["resumed"] or resumed["steps"] != CLI_RESUME_STEPS - CLI_TRAIN_STEPS:
+        fail(f"train CLI: the second run did not resume ({resumed})")
+    log(f"  a second run of {CLI_RESUME_STEPS} steps resumed from step {sf} "
+        f"(resumed: true, {resumed['steps']} steps)")
+
+
+def training_phase(torch, np, dev) -> dict:
+    """Phase 18: training, each sub-phase's seconds and peak memory printed."""
+    smi = smi_name_and_limit()
+    log(f"== phase 18 (a, b): the GNN train cells at the reference's full sizes ({smi})")
+    out = gnn_train_phase(torch, np, dev)
+    log(f"== phase 18 (c): wide-deep FULL at train_batch ({smi})")
+    recsys_train_phase(torch, np, dev)
+    log(f"== phase 18 (d): h2o-danube-1.8b and granite-moe-3b-a800m FULL at train_4k ({smi})")
+    out["lm"] = lm_train_phase(torch, np, dev)
+    log(f"== phase 18 (e): python -m repro_torch run on the docs' train spec ({smi})")
+    train_cli_phase(torch, np)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -3696,6 +4261,7 @@ def main() -> int:
     # --------------------------------------------- 12. the bench harness
     t0 = time.perf_counter()
     bench_phase()
+    bench_b4 = lp_on_graph_launches(torch, dev)
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
 
     # -------------------------- 13. the autotune sweep and the sharded engine
@@ -3719,6 +4285,12 @@ def main() -> int:
     moe_mla = moe_mla_phase(torch, np, dev)
     log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
 
+    # ------------------------------- 18. training (run before the kernel
+    # list of phase 14, which counts B4's forward and backward launches)
+    t0 = time.perf_counter()
+    train = training_phase(torch, np, dev)
+    log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
     # ------------------------------------------------ 14. the kernel list
     log("== phase 14: kernels")
     counts["csr_round_residual"] += entry["serve_b1"] + tuned["b1"]
@@ -3728,7 +4300,12 @@ def main() -> int:
     if zoo["b3"] <= 0 or zoo["b4"] <= 0:
         fail(f"phase 15 launched csr_round {zoo['b3']} and csr_aggregate {zoo['b4']} times")
     counts["csr_round"] = legacy_counts["csr_round"] + entry["b3"] + tuned["b3"] + zoo["b3"]
-    counts["csr_aggregate"] = gcn_counts["csr_aggregate"] + zoo["b4"]
+    counts["csr_aggregate"] = gcn_counts["csr_aggregate"] + zoo["b4"] + bench_b4[0] + train["b4_fwd"]
+    counts["csr_aggregate_backward"] = bench_b4[1] + train["b4_bwd_launches"]
+    if bench_b4[1] <= 0 or train["b4_bwd_launches"] <= 0:
+        fail(f"csr_aggregate's backward launched {bench_b4[1]} times in phase 12 and "
+             f"{train['b4_bwd_launches']} in phase 18")
+    b4_bwd = train["b4_bwd"]
     counts["embedding_bag"] = wd_counts["embedding_bag"]
     counts["flash_attention"] = serving["launches"] + moe_mla["launches"]
     for name, cnt in counts.items():
@@ -3786,6 +4363,19 @@ def main() -> int:
             "bound_ms": b4["bound_ms"],
             "bound_by": b4["by"],
             "library_ms": b4["lib_ms"],
+        },
+        {
+            "name": "csr_aggregate_backward",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/csr_aggregate.cu",
+            "replaces": "src/repro/kernels/segment_reduce/kernel.py:147",
+            "launches": counts["csr_aggregate_backward"],
+            "max_abs_err": b4_bwd["err"],
+            "ms": b4_bwd["ms"],
+            "plain_ms": b4_bwd["plain_ms"],
+            "bound_ms": b4_bwd["bound_ms"],
+            "bound_by": b4_bwd["by"],
+            "library_ms": b4_bwd["lib_ms"],
         },
         {
             "name": "embedding_bag",

@@ -20,9 +20,10 @@ Every engine of a session runs on its ``device`` (``None`` = ``cuda:0``,
 which raises without CUDA; the CPU only with ``device="cpu"``), and so
 does the ``bench`` pass.  The ``sharded`` backend lays its mesh over the
 world that exists (every rank under ``torchrun``) or starts a world of one
-rank; only rank 0 writes run artifacts.  The stages whose modules are not
-ported yet raise ``NotImplementedError`` naming their item of
-``ROADMAP.md``'s queue A: ``train`` and ``dryrun`` (A.9).
+rank; only rank 0 writes run artifacts.  ``train`` runs the guarded
+training loop on the session's device.  The stage whose modules are not
+ported yet raises ``NotImplementedError`` naming its item of
+``ROADMAP.md``'s queue A: ``dryrun`` (A.9).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from repro_torch.device import DeviceLike, resolve_device
 
 _UNSET = object()
 # run sections whose modules are not ported yet -> their ROADMAP.md item
-_NOT_PORTED_STAGES = {"train": "A.9", "dryrun": "A.9"}
+_NOT_PORTED_STAGES = {"dryrun": "A.9"}
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -614,7 +615,34 @@ class Session:
         )
 
     def train(self, *, echo=print) -> TrainArtifact:
-        raise not_ported("the train section", _NOT_PORTED_STAGES["train"])
+        """Run the guarded training loop for the spec's ``train`` section
+        on the session's device.
+
+        Training never touches the LP network/engine machinery: the
+        section runs standalone (a networkless spec is valid), and
+        lp-family archs are rejected in :func:`~repro_torch.launch.train.
+        run_training` because they converge via the solve stage, not SGD.
+        ``echo`` receives the per-step progress lines.
+        """
+        if self.spec.train is None:
+            raise SpecError("run section 'train' needs a train section in the spec")
+        from repro_torch.launch.train import run_training
+
+        t0 = time.perf_counter()
+        stats = run_training(self.spec.train, echo=echo, device=self.device)
+        return TrainArtifact(
+            run_id=self.run_id,
+            seconds=time.perf_counter() - t0,
+            arch=str(stats["arch"]),
+            family=str(stats["family"]),
+            steps=int(stats["steps"]),
+            first_loss=float(stats["first_loss"]),
+            last_loss=float(stats["last_loss"]),
+            retries=int(stats["retries"]),
+            restores=int(stats["restores"]),
+            slow_steps=int(stats["slow_steps"]),
+            resumed=bool(stats["resumed"]),
+        )
 
     def dryrun(self) -> DryrunArtifact:
         raise not_ported("the dryrun section", _NOT_PORTED_STAGES["dryrun"])

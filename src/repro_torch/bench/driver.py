@@ -7,10 +7,10 @@ report writing, same failure semantics (DESIGN.md §10).
 
 The suites are modules of this package (``repro_torch.bench.suites``
 plus the two matrix suites); importing them registers them.  The
-reference's ``lp_on_graph`` and ``roofline`` suites need modules not
-ported yet: a pass over every suite prints one
-``skipped <suite>: not ported (ROADMAP A.n)`` line for each, and naming
-one in ``only`` raises the port's ``NotImplementedError``.
+reference's ``roofline`` suite needs the dry run, not ported yet: a pass
+over every suite prints one ``skipped roofline: not ported (ROADMAP
+A.9.5)`` line, and naming it in ``only`` raises the port's
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ from typing import Callable, List, Optional
 
 #: reference suites this package lacks -> the ROADMAP.md queue item they wait for
 NOT_PORTED_SUITES = {
-    "lp_on_graph": "A.9.4",  # its GCN cell trains
     "roofline": "A.9.5",  # the dry-run census
 }
 
@@ -44,6 +43,7 @@ def import_suite_modules() -> None:
     import repro_torch.bench.suites.fig34_parallelism  # noqa: F401
     import repro_torch.bench.suites.kernel_variants  # noqa: F401
     import repro_torch.bench.suites.kernels  # noqa: F401
+    import repro_torch.bench.suites.lp_on_graph  # noqa: F401
     import repro_torch.bench.suites.serve  # noqa: F401
     import repro_torch.bench.suites.table2_cv  # noqa: F401
     import repro_torch.bench.suites.table34_deleted  # noqa: F401

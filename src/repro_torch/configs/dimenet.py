@@ -3,7 +3,8 @@ n_radial=6; triplet-gather regime.  [arXiv:2003.03123]  The port's copy of
 ``repro.configs.dimenet``.
 """
 
-from repro_torch.configs.registry import ArchSpec, cell_not_ported
+from repro_torch.configs.cells import gnn_cell
+from repro_torch.configs.registry import ArchSpec
 from repro_torch.models.gnn import DimeNetConfig
 
 FULL = DimeNetConfig(
@@ -22,6 +23,6 @@ def spec() -> ArchSpec:
         full_config=FULL,
         reduced_config=REDUCED,
         shapes=SHAPES,
-        make_cell=cell_not_ported("dimenet"),
+        make_cell=lambda s: gnn_cell("dimenet", FULL, s),
         source="arXiv:2003.03123; unverified",
     )

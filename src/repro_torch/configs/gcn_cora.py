@@ -2,7 +2,8 @@
 [arXiv:1609.02907]  The port's copy of ``repro.configs.gcn_cora``.
 """
 
-from repro_torch.configs.registry import ArchSpec, cell_not_ported
+from repro_torch.configs.cells import gnn_cell
+from repro_torch.configs.registry import ArchSpec
 from repro_torch.models.gnn import GCNConfig
 
 FULL = GCNConfig(name="gcn-cora", n_layers=2, d_hidden=16, d_feat=1433, n_classes=7)
@@ -17,6 +18,6 @@ def spec() -> ArchSpec:
         full_config=FULL,
         reduced_config=REDUCED,
         shapes=SHAPES,
-        make_cell=cell_not_ported("gcn-cora"),
+        make_cell=lambda s: gnn_cell("gcn-cora", FULL, s),
         source="arXiv:1609.02907; paper",
     )

@@ -1,19 +1,20 @@
 """granite-moe-3b-a800m [moe] — 32L d_model=1536 24H (GQA kv=8) d_ff=512,
 vocab=49155, MoE 40 experts top-8.  [hf:ibm-granite/granite-3.0-1b-a400m-base]
 The port's copy of ``repro.configs.granite_moe_3b_a800m``: the port's
-``Transformer`` serves it (the MoE FFN by index, GQA attention on B6);
-its train and dry-run cells are not ported (``make_cell`` raises naming
-ROADMAP A.9.4-A.9.5).
+``Transformer`` serves it (the MoE FFN by index, GQA attention on B6)
+and trains it (``train_4k``: the plain attention route).
 
 The assignment header says "MoE 40e top-8" while its trailing comment
 says 32 experts; the explicit field (40 experts) is implemented.
 """
 
+import dataclasses
 import os
 
 import torch
 
-from repro_torch.configs.registry import ArchSpec, cell_not_ported
+from repro_torch.configs.cells import lm_cell
+from repro_torch.configs.registry import ArchSpec
 from repro_torch.models.transformer import MoEConfig, TransformerConfig
 
 FULL = TransformerConfig(
@@ -57,7 +58,7 @@ def spec() -> ArchSpec:
         full_config=FULL,
         reduced_config=REDUCED,
         shapes=SHAPES,
-        make_cell=cell_not_ported("granite-moe-3b-a800m"),
-        make_probe_cell=cell_not_ported("granite-moe-3b-a800m"),
+        make_cell=lambda s: lm_cell("granite-moe-3b-a800m", FULL, s),
+        make_probe_cell=lambda s, t: lm_cell("granite-moe-3b-a800m", dataclasses.replace(FULL, n_layers=t), s),
         source="hf:ibm-granite/granite-3.0-1b-a400m-base; hf",
     )

@@ -3,9 +3,12 @@ vocab=32000, llama+mistral mix with sliding-window attention.
 [arXiv:2401.16818]  The port's copy of ``repro.configs.h2o_danube_1_8b``.
 """
 
+import dataclasses
+
 import torch
 
-from repro_torch.configs.registry import ArchSpec, cell_not_ported
+from repro_torch.configs.cells import lm_cell
+from repro_torch.configs.registry import ArchSpec
 from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
@@ -41,7 +44,7 @@ def spec() -> ArchSpec:
         full_config=FULL,
         reduced_config=REDUCED,
         shapes=SHAPES,
-        make_cell=cell_not_ported("h2o-danube-1.8b"),
-        make_probe_cell=cell_not_ported("h2o-danube-1.8b"),
+        make_cell=lambda s: lm_cell("h2o-danube-1.8b", FULL, s),
+        make_probe_cell=lambda s, t: lm_cell("h2o-danube-1.8b", dataclasses.replace(FULL, n_layers=t), s),
         source="arXiv:2401.16818; hf",
     )

@@ -3,7 +3,8 @@
 of ``repro.configs.meshgraphnet``.
 """
 
-from repro_torch.configs.registry import ArchSpec, cell_not_ported
+from repro_torch.configs.cells import gnn_cell
+from repro_torch.configs.registry import ArchSpec
 from repro_torch.models.gnn import MGNConfig
 
 FULL = MGNConfig(
@@ -23,6 +24,6 @@ def spec() -> ArchSpec:
         full_config=FULL,
         reduced_config=REDUCED,
         shapes=SHAPES,
-        make_cell=cell_not_ported("meshgraphnet"),
+        make_cell=lambda s: gnn_cell("meshgraphnet", FULL, s),
         source="arXiv:2010.03409; unverified",
     )

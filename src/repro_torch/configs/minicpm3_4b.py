@@ -2,15 +2,17 @@
 multi-head latent attention (MLA).  [hf:openbmb/MiniCPM3-4B]
 The port's copy of ``repro.configs.minicpm3_4b``: the port's
 ``Transformer`` serves it (MLA attention on the plain route, absorbed
-with a cache); its train and dry-run cells are not ported
-(``make_cell`` raises naming ROADMAP A.9.4-A.9.5).
+with a cache) and trains it (``train_4k``: MLA's naive path, chunks
+checkpointed).
 """
 
+import dataclasses
 import os
 
 import torch
 
-from repro_torch.configs.registry import ArchSpec, cell_not_ported
+from repro_torch.configs.cells import lm_cell
+from repro_torch.configs.registry import ArchSpec
 from repro_torch.models.transformer import MLAConfig, TransformerConfig
 
 FULL = TransformerConfig(
@@ -53,7 +55,7 @@ def spec() -> ArchSpec:
         full_config=FULL,
         reduced_config=REDUCED,
         shapes=SHAPES,
-        make_cell=cell_not_ported("minicpm3-4b"),
-        make_probe_cell=cell_not_ported("minicpm3-4b"),
+        make_cell=lambda s: lm_cell("minicpm3-4b", FULL, s),
+        make_probe_cell=lambda s, t: lm_cell("minicpm3-4b", dataclasses.replace(FULL, n_layers=t), s),
         source="hf:openbmb/MiniCPM3-4B; hf",
     )

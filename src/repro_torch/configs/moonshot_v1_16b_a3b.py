@@ -2,14 +2,16 @@
 vocab=163840, MoE 64 experts top-6 (kimi/moonlight).
 [hf:moonshotai/Moonlight-16B-A3B]  The port's copy of
 ``repro.configs.moonshot_v1_16b_a3b``: the port's ``Transformer`` serves
-it (the MoE FFN by index, GQA attention on B6 at head dim 128); its
-train and dry-run cells are not ported (``make_cell`` raises naming
-ROADMAP A.9.4-A.9.5).
+it (the MoE FFN by index, GQA attention on B6 at head dim 128) and
+trains it (``train_4k``: the plain attention route).
 """
+
+import dataclasses
 
 import torch
 
-from repro_torch.configs.registry import ArchSpec, cell_not_ported
+from repro_torch.configs.cells import lm_cell
+from repro_torch.configs.registry import ArchSpec
 from repro_torch.models.transformer import MoEConfig, TransformerConfig
 
 FULL = TransformerConfig(
@@ -49,7 +51,7 @@ def spec() -> ArchSpec:
         full_config=FULL,
         reduced_config=REDUCED,
         shapes=SHAPES,
-        make_cell=cell_not_ported("moonshot-v1-16b-a3b"),
-        make_probe_cell=cell_not_ported("moonshot-v1-16b-a3b"),
+        make_cell=lambda s: lm_cell("moonshot-v1-16b-a3b", FULL, s),
+        make_probe_cell=lambda s, t: lm_cell("moonshot-v1-16b-a3b", dataclasses.replace(FULL, n_layers=t), s),
         source="hf:moonshotai/Moonlight-16B-A3B; hf",
     )

@@ -2,9 +2,9 @@
 
 The port's copy of ``repro.configs.registry``: the same 11 ids in the same
 order, each resolved by importing its config module and calling its
-``spec()``.  ``ArchSpec.make_cell`` builds the cells of ``dhlp-bio``; for
-every other arch it raises ``NotImplementedError``, since those cells are
-training steps (ROADMAP A.9.4) or dry-run inputs (A.9.5).
+``spec()``.  ``ArchSpec.make_cell`` builds every cell of
+:func:`all_cells` (:mod:`.cells`, :mod:`.dhlp_bio`); the dry run that
+compiles them is ROADMAP A.9.5.
 """
 
 from __future__ import annotations
@@ -61,19 +61,6 @@ class ArchSpec:
     make_probe_cell: Optional[Callable[[str, int], Cell]] = None
 
 
-def cell_not_ported(arch_id: str) -> Callable[..., Cell]:
-    """``make_cell`` / ``make_probe_cell`` of an arch whose cells the port
-    cannot build yet: raises, naming the queue items."""
-
-    def make(shape: str, *_):
-        raise NotImplementedError(
-            f"{arch_id} cell {shape!r}: the train, prefill, decode and serve cells "
-            "are not ported yet (ROADMAP A.9.4-A.9.5: training, the dry run)"
-        )
-
-    return make
-
-
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {', '.join(ARCH_IDS)}")
@@ -96,4 +83,4 @@ def all_cells(include_extra: bool = False) -> List[Tuple[str, str]]:
     return out
 
 
-__all__ = ["ARCH_IDS", "ArchSpec", "all_cells", "cell_not_ported", "get_arch", "list_archs"]
+__all__ = ["ARCH_IDS", "ArchSpec", "all_cells", "get_arch", "list_archs"]

@@ -3,9 +3,12 @@ d_ff=5632, vocab=100352.  [hf:stabilityai/stablelm-2-1_6b]  The port's
 copy of ``repro.configs.stablelm_1_6b``.
 """
 
+import dataclasses
+
 import torch
 
-from repro_torch.configs.registry import ArchSpec, cell_not_ported
+from repro_torch.configs.cells import lm_cell
+from repro_torch.configs.registry import ArchSpec
 from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
@@ -39,7 +42,7 @@ def spec() -> ArchSpec:
         full_config=FULL,
         reduced_config=REDUCED,
         shapes=SHAPES,
-        make_cell=cell_not_ported("stablelm-1.6b"),
-        make_probe_cell=cell_not_ported("stablelm-1.6b"),
+        make_cell=lambda s: lm_cell("stablelm-1.6b", FULL, s),
+        make_probe_cell=lambda s, t: lm_cell("stablelm-1.6b", dataclasses.replace(FULL, n_layers=t), s),
         source="hf:stabilityai/stablelm-2-1_6b; unverified",
     )

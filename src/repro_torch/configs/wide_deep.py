@@ -3,7 +3,8 @@ concat interaction.  [arXiv:1606.07792]  The port's copy of
 ``repro.configs.wide_deep``.
 """
 
-from repro_torch.configs.registry import ArchSpec, cell_not_ported
+from repro_torch.configs.cells import recsys_cell
+from repro_torch.configs.registry import ArchSpec
 from repro_torch.models.recsys import WideDeepConfig
 
 FULL = WideDeepConfig(
@@ -32,6 +33,6 @@ def spec() -> ArchSpec:
         full_config=FULL,
         reduced_config=REDUCED,
         shapes=SHAPES,
-        make_cell=cell_not_ported("wide-deep"),
+        make_cell=lambda s: recsys_cell("wide-deep", FULL, s),
         source="arXiv:1606.07792; paper",
     )

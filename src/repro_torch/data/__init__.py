@@ -2,6 +2,7 @@
 of the GNNs and the CTR batches of Wide & Deep."""
 
 from repro_torch.data.drugnet import DrugNet, DrugNetSpec, make_drugnet
+from repro_torch.data.lm import LMDataConfig, batch_iterator, sample_batch
 from repro_torch.data.graphs import (
     NodeClassificationData,
     mesh_rollout_batch,
@@ -14,10 +15,13 @@ __all__ = [
     "CTRDataConfig",
     "DrugNet",
     "DrugNetSpec",
+    "LMDataConfig",
     "NodeClassificationData",
+    "batch_iterator",
     "make_drugnet",
     "mesh_rollout_batch",
     "molecule_batch",
     "planted_partition_graph",
+    "sample_batch",
     "sample_ctr_batch",
 ]

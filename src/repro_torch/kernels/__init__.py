@@ -7,13 +7,16 @@ csr_round_residual     repro/kernels/segment_reduce/kernel.py       csrc/csr_rou
 csr_round              repro/kernels/segment_reduce/kernel.py       csrc/csr_round.cu
 lp_round               repro/kernels/lp_blockspmm/kernel.py         csrc/lp_round.cu
 csr_aggregate          repro/kernels/segment_reduce/kernel.py       csrc/csr_aggregate.cu
+csr_aggregate (bwd)    none: B4 on the transposed operator          csrc/csr_aggregate.cu
 embedding_bag          repro/kernels/embedding_bag/kernel.py        csrc/embedding_bag.cu
 flash_attention        repro/kernels/flash_attention/kernel.py      csrc/flash_attention.cu
 =====================  ==========================================  ====================
 
 Each ``*_op`` wrapper takes the plain version for CPU tensors and launches
 its kernel for CUDA tensors (or raises); each kernel launch adds one to
-the wrapper's :class:`~repro_torch.kernels.common.LaunchCounter`.
+the wrapper's :class:`~repro_torch.kernels.common.LaunchCounter`
+(``csr_aggregate_backward`` counts B4's launches by
+:class:`~repro_torch.kernels.segment_reduce.CSRAggregate`'s backward).
 """
 
 from repro_torch.kernels import embedding_bag, flash_attention, lp_blockspmm, segment_reduce
@@ -41,6 +44,7 @@ COUNTERS = {
         segment_reduce.ROUND_LAUNCHES,
         lp_blockspmm.LAUNCHES,
         segment_reduce.AGGREGATE_LAUNCHES,
+        segment_reduce.AGGREGATE_BACKWARD_LAUNCHES,
         embedding_bag.LAUNCHES,
         flash_attention.LAUNCHES,
     )

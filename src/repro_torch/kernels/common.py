@@ -215,6 +215,22 @@ def check_cuda_operand(name: str, t, *, device, dtypes, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_grad(name: str, *tensors, hint: str = "") -> None:
+    """Raise when autograd is recording and an input requires a gradient.
+
+    The kernels write into fresh buffers through ``ctypes``: their outputs
+    carry no ``grad_fn``, so a gradient through them would be lost without
+    a word.  The wrappers call this on both routes (the plain version
+    would record a graph the kernel cannot), so a CPU test shows it too."""
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but this kernel has no backward "
+            f"(run it under torch.no_grad(){hint})"
+        )
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if the C launcher reported a CUDA error (``cudaGetLastError``)."""
     if err != 0:

@@ -26,6 +26,7 @@ from repro_torch.kernels.common import (
     check_launch,
     load_library,
     on_cpu,
+    refuse_grad,
     stream_handle,
     widest_vector,
 )
@@ -134,6 +135,7 @@ def embedding_bag_op(
     ``(ld, D, 1)``: bag ``i`` lands at ``out[i // G, i % G]`` (the Wide &
     Deep model's padded MLP input).  Returns ``out``.
     """
+    refuse_grad("embedding_bag", table, w)
     t0 = kernel_clock(table.device)
     if on_cpu(table, idx, w):
         res = embedding_bag_ref(table, idx, w)

@@ -29,6 +29,7 @@ from repro_torch.kernels.common import (
     check_launch,
     load_library,
     on_cpu,
+    refuse_grad,
     stream_handle,
 )
 from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
@@ -149,6 +150,7 @@ def gqa_attention_op(
     ``"blhd"``: q ``(B, Lq, Hq, D)``, k and v ``(B, Lk, Hkv, D)``; the
     output has q's layout.  ``Hq`` must be a multiple of ``Hkv``.
     """
+    refuse_grad("flash_attention", q, k, v)
     if layout not in _LAYOUTS:
         raise ValueError(f"layout must be one of {_LAYOUTS}, got {layout!r}")
     if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):

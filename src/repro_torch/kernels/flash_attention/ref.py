@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def attention_ref(
@@ -56,6 +57,7 @@ def gqa_attention_ref(
     q_offset: int = 0,
     layout: str = "bhld",
     chunk: Optional[int] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """:func:`attention_ref` with grouped-query heads: KV head ``h // group``
     serves query head ``h``.
@@ -67,12 +69,14 @@ def gqa_attention_ref(
     positions shifted, so the masks are unchanged): a long prompt's whole
     score matrix need not fit in memory.  The KV heads are repeated per
     chunk, over those keys only.  Without ``chunk`` it is
-    :func:`attention_ref` on the repeated heads, bit for bit.
+    :func:`attention_ref` on the repeated heads, bit for bit.  ``remat``
+    (training) checkpoints each chunk: its f32 scores and softmax are
+    recomputed in backward instead of kept, so one chunk's are live.
     """
     if layout == "blhd":
         t = lambda x: x.transpose(1, 2)  # noqa: E731
         out = gqa_attention_ref(t(q), t(k), t(v), causal=causal, window=window,
-                                q_offset=q_offset, chunk=chunk)
+                                q_offset=q_offset, chunk=chunk, remat=remat)
         return t(out)
     lq, lk = q.shape[2], k.shape[2]
     group = q.shape[1] // k.shape[1]
@@ -84,13 +88,23 @@ def gqa_attention_ref(
         hi = min(lk, q_offset + e) if chunk and causal else lk
         if hi <= lo:  # no row of the chunk sees a key: keep them all, the mask gives NaN
             lo, hi = 0, lk
-        kc, vc = k[:, :, lo:hi], v[:, :, lo:hi]
-        if group > 1:
-            kc = kc.repeat_interleave(group, dim=1)
-            vc = vc.repeat_interleave(group, dim=1)
-        outs.append(attention_ref(q[:, :, a:e], kc, vc, causal=causal, window=window,
-                                  q_offset=q_offset + a - lo))
+        outs.append(_chunk(q[:, :, a:e], k[:, :, lo:hi], v[:, :, lo:hi], group, causal,
+                           window, q_offset + a - lo, remat))
     return torch.cat(outs, dim=2)
+
+
+def _chunk_attention(q, k, v, group, causal, window, q_offset):
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    return attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def _chunk(q, k, v, group, causal, window, q_offset, remat):
+    if remat:
+        return checkpoint(_chunk_attention, q, k, v, group, causal, window, q_offset,
+                          use_reentrant=False)
+    return _chunk_attention(q, k, v, group, causal, window, q_offset)
 
 
 __all__ = ["attention_ref", "gqa_attention_ref"]

@@ -22,6 +22,7 @@ from repro_torch.kernels.common import (
     check_launch,
     load_library,
     on_cpu,
+    refuse_grad,
     round_up,
     stream_handle,
 )
@@ -58,6 +59,7 @@ def lp_round_op(
     A: torch.Tensor, F: torch.Tensor, base: torch.Tensor, *, c: float
 ) -> torch.Tensor:
     """``c·base + A @ F`` with an f32 accumulator, in ``F.dtype``."""
+    refuse_grad("lp_round", A, F, base)
     t0 = kernel_clock(F.device)
     if on_cpu(A, F, base):
         return kernel_time("lp_round.ref", t0, lp_round_ref(A, F, base, c))

@@ -3,7 +3,18 @@
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the hand-written kernel (``csrc/csr_aggregate.cu``,
 ``csrc/csr_round_residual.cu``, ``csrc/csr_round.cu``) or raises — there
-is no fallback from the card to the plain version.
+is no fallback from the card to the plain version.  The wrappers raise
+when autograd records an input that requires a gradient
+(:func:`~repro_torch.kernels.common.refuse_grad`): only the aggregate has
+a backward, through :class:`CSRAggregate`.
+
+**B4's backward is B4.**  ``out = A·F`` over the padded CSR ``A`` (M, D)
+has ``∂L/∂F = Aᵀ·∂L/∂out``, the same aggregate over the transposed padded
+CSR (:func:`transpose_padded_csr`, built once per graph on the card by a
+sort).  :class:`CSRAggregate` launches ``csr_aggregate`` forward on ``A``
+and backward on ``Aᵀ``, each launch counted (``AGGREGATE_LAUNCHES``,
+``AGGREGATE_BACKWARD_LAUNCHES``); on CPU tensors both directions take the
+plain version.  There is no gradient for the operator itself.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ from repro_torch.kernels.common import (
     check_launch,
     load_library,
     on_cpu,
+    refuse_grad,
     stream_handle,
     widest_vector,
 )
@@ -30,6 +42,7 @@ from repro_torch.kernels.segment_reduce.ref import (
     csr_round_ref,
     csr_round_residual_ref,
 )
+from repro_torch.graph.structures import padded_csr_tensors
 from repro_torch.obs.profiler import kernel_clock, kernel_time
 
 SOURCE = "csr_round_residual.cu"
@@ -38,6 +51,8 @@ ROUND_SOURCE = "csr_round.cu"
 ROUND_LAUNCHES = LaunchCounter("csr_round")
 AGGREGATE_SOURCE = "csr_aggregate.cu"
 AGGREGATE_LAUNCHES = LaunchCounter("csr_aggregate")
+# B4 launched by CSRAggregate.backward on the transposed operator
+AGGREGATE_BACKWARD_LAUNCHES = LaunchCounter("csr_aggregate_backward")
 
 # A block walks rows_per_block rows × width live slots per column; aim for
 # about this many slots per block so narrow buckets still get long loops
@@ -163,16 +178,23 @@ def csr_aggregate_op(
     buffer of ``F``'s dtype the result is written into.  ``live``, when
     given, lets the kernel stop each row after its live slots plus one
     pad, as in :func:`csr_round_op`; the plain version sums every slot and
-    gives the same function.
+    gives the same function.  Raises when autograd records an input that
+    requires a gradient: :class:`CSRAggregate` gives F one.
     """
+    refuse_grad("csr_aggregate", nbr, wgt, F, hint=", or give F its gradient through "
+                "CSRAggregate")
+    return _aggregate("csr_aggregate", AGGREGATE_LAUNCHES, nbr, wgt, F, out, live)
+
+
+def _aggregate(name, counter, nbr, wgt, F, out, live):
     t0 = kernel_clock(F.device)
     if on_cpu(nbr, wgt, F):
         res = csr_aggregate_ref(nbr, wgt, F)
         if out is not None:
             out.copy_(res)
             res = out
-        return kernel_time("csr_aggregate.ref", t0, res)
-    m, d, s = _check_bucket("csr_aggregate", nbr, wgt, F)
+        return kernel_time(f"{name}.ref", t0, res)
+    m, d, s = _check_bucket(name, nbr, wgt, F)
     dev = F.device
     if out is None:
         out = torch.empty((m, s), dtype=F.dtype, device=dev)
@@ -201,9 +223,60 @@ def csr_aggregate_op(
         dev.index,
         stream_handle(dev),
     )
-    check_launch("csr_aggregate", err)
-    AGGREGATE_LAUNCHES.add()
-    return kernel_time("csr_aggregate.kernel", t0, out)
+    check_launch(name, err)
+    counter.add()
+    return kernel_time(f"{name}.kernel", t0, out)
+
+
+class CSRTranspose(NamedTuple):
+    """``Aᵀ`` of a padded CSR ``A``: ``(num_cols, D')`` neighbours and
+    weights (pads ``(0, 0)`` after each row's live slots) and the rows'
+    live lengths."""
+
+    nbr: torch.Tensor
+    wgt: torch.Tensor
+    live: LiveRows
+
+
+def transpose_padded_csr(nbr: torch.Tensor, wgt: torch.Tensor, num_cols: int) -> CSRTranspose:
+    """The padded CSR of ``Aᵀ`` for ``A[r, nbr[r, k]] += wgt[r, k]``, on
+    ``nbr``'s device (a stable sort by column, no host round trip but the
+    live-slot total).
+
+    Every slot of nonzero weight becomes one entry ``(nbr[r, k] → r)`` of
+    row ``nbr[r, k]``, in row order; zero-weight slots (the pads) add
+    nothing to ``Aᵀ·G`` and are dropped, so duplicates stay separate
+    entries.  Built once per graph, beside the forward operator."""
+    m, d = nbr.shape
+    keep = wgt != 0
+    rows = torch.arange(m, dtype=torch.int32, device=nbr.device)[:, None].expand(m, d)[keep]
+    nbr_t, wgt_t, deg = padded_csr_tensors(rows, nbr[keep], wgt[keep], int(num_cols))
+    return CSRTranspose(nbr_t, wgt_t.to(wgt.dtype), LiveRows(deg, int(deg.sum())))
+
+
+class CSRAggregate(torch.autograd.Function):
+    """B4 with a gradient for ``F``: forward ``A·F`` and backward
+    ``Aᵀ·∂out`` both on ``csr_aggregate`` (plain versions on the CPU).
+
+    ``apply(F, nbr, wgt, live, transpose)``; ``transpose`` is
+    :func:`transpose_padded_csr` of ``(nbr, wgt)``.  No gradient flows to
+    the operator: a ``wgt`` that requires one raises."""
+
+    @staticmethod
+    def forward(ctx, F, nbr, wgt, live, transpose):
+        if wgt.requires_grad or nbr.requires_grad:
+            raise ValueError("CSRAggregate: the operator (nbr, wgt) takes no gradient")
+        ctx.transpose = transpose
+        return _aggregate("csr_aggregate", AGGREGATE_LAUNCHES, nbr, wgt, F, None, live)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None
+        t = ctx.transpose
+        grad_f = _aggregate("csr_aggregate_backward", AGGREGATE_BACKWARD_LAUNCHES,
+                            t.nbr, t.wgt, grad_out.contiguous(), None, t.live)
+        return grad_f, None, None, None, None
 
 
 def csr_round_op(
@@ -228,6 +301,7 @@ def csr_round_op(
     sizes the kernel's blocks (:func:`rows_per_block`); the plain version
     has none.
     """
+    refuse_grad("csr_round", nbr, wgt, F, base)
     t0 = kernel_clock(F.device)
     if on_cpu(nbr, wgt, F, base):
         res = csr_round_ref(nbr, wgt, F, base, c)
@@ -290,6 +364,7 @@ def csr_round_residual_op(
     next state, so no per-round concatenation is needed).  ``live`` as for
     :func:`csr_round_op`.
     """
+    refuse_grad("csr_round_residual", nbr, wgt, F, base, prev)
     t0 = kernel_clock(F.device)
     if on_cpu(nbr, wgt, F, base, prev):
         res, delta = csr_round_residual_ref(nbr, wgt, F, base, prev, c)

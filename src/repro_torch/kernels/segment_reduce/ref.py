@@ -17,17 +17,26 @@ import torch
 GATHER_BUDGET = 1 << 27
 
 
+def _gather(F: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``F[idx]`` for an (M, D) index table, as ``index_select`` (whose
+    gradient is an ``index_add_``: the indexing's accumulating
+    ``index_put_`` took minutes on the card at ``ogb_products``)."""
+    return F.index_select(0, idx.reshape(-1)).view(*idx.shape, F.shape[1])
+
+
 def _aggregate_f32(
     nbr: torch.Tensor,  # (M, D) int32 neighbor ids
     wgt: torch.Tensor,  # (M, D) float weights (0 = pad)
     F: torch.Tensor,  # (N, S) features/labels
+    acc: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """``Σ_k wgt[·,k] · F[nbr[·,k]]`` accumulated and returned in f32 (the
-    sum the fused rounds add to ``c·base`` before their one rounding)."""
+    """``Σ_k wgt[·,k] · F[nbr[·,k]]`` accumulated and returned in ``acc``,
+    f32 (the sum the fused rounds add to ``c·base`` before their one
+    rounding) unless asked otherwise."""
     m, d = nbr.shape
     s = F.shape[1]
     idx = nbr.long()
-    w = wgt.float()
+    w = wgt.to(acc)
     if m * d <= GATHER_BUDGET:
         rows, cols = m, max(1, min(s, GATHER_BUDGET // max(1, m * d)))
     else:
@@ -39,7 +48,7 @@ def _aggregate_f32(
                 torch.einsum(
                     "nd,nds->ns",
                     w[r0 : r0 + rows],
-                    F[:, c0 : c0 + cols][idx[r0 : r0 + rows]].float(),
+                    _gather(F[:, c0 : c0 + cols], idx[r0 : r0 + rows]).to(acc),
                 )
                 for c0 in range(0, s, cols)
             ],
@@ -57,8 +66,11 @@ def csr_aggregate_ref(
 ) -> torch.Tensor:
     """``Σ_k wgt[·,k] · F[nbr[·,k]]`` accumulated in f32, returned in
     ``F.dtype`` (as ``repro``'s oracle of the same name): the plain
-    version of the ``csr_aggregate`` kernel."""
-    return _aggregate_f32(nbr, wgt, F).to(F.dtype)
+    version of the ``csr_aggregate`` kernel.  An f64 ``F`` (the gradient
+    checks of :class:`~repro_torch.kernels.segment_reduce.CSRAggregate`)
+    is summed in f64."""
+    acc = torch.float64 if F.dtype == torch.float64 else torch.float32
+    return _aggregate_f32(nbr, wgt, F, acc).to(F.dtype)
 
 
 def csr_round_ref(

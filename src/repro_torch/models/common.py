@@ -55,9 +55,9 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
 def layer_norm(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
-    """Normalised over the last axis in f32 (biased variance), scaled and
-    shifted, returned in ``x.dtype``."""
-    x32 = x.float()
+    """Normalised over the last axis in f32 (f64 for f64 inputs; biased
+    variance), scaled and shifted, returned in ``x.dtype``."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     centred = x32 - x32.mean(dim=-1, keepdim=True)
     var = centred.square().mean(dim=-1, keepdim=True)
     return (centred * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
@@ -109,6 +109,15 @@ def causal_mask(
     return m
 
 
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of ``logits (..., V)`` against integer ``labels
+    (...)``, in f32 (``repro.models.common.softmax_cross_entropy``)."""
+    logits32 = logits.float()
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
 __all__ = [
     "apply_rope",
     "causal_mask",
@@ -118,5 +127,6 @@ __all__ = [
     "mlp",
     "rms_norm",
     "rope_frequencies",
+    "softmax_cross_entropy",
     "swiglu",
 ]

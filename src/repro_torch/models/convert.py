@@ -3,8 +3,10 @@
 ``repro`` keeps parameters as pytrees of JAX arrays; a caller converts
 one to numpy (``jax.tree.map(np.asarray, params)``) and loads it here, so
 both packages compute with the same weights — the model counterpart of
-the ``.npz`` network exchange in :mod:`repro_torch.core.network`.  This
-module imports neither ``jax`` nor ``repro``: it reads plain numpy.
+the ``.npz`` network exchange in :mod:`repro_torch.core.network`.  The
+reference's optimizer state carries across too (:func:`load_opt_state`),
+onto a model's parameter tree (``param_tree()``).  This module imports
+neither ``jax`` nor ``repro``: it reads plain numpy.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from repro_torch.models.gnn import GAT, GCN, SAGE, DimeNet, MeshGraphNet
 from repro_torch.models.recsys import WideDeep
 from repro_torch.models.transformer import Transformer
+from repro_torch.optim import OptState, tree_leaves
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
@@ -136,11 +139,46 @@ def load_transformer(model: Transformer, params: Mapping) -> Transformer:
     return model
 
 
+def _moment_tree(like, ref, name: str):
+    """``ref`` (the reference's pytree of numpy arrays) in the structure of
+    the port's parameter tree ``like``, as f32 tensors on each leaf's
+    device.  A port list against a reference dict is a stack of layers
+    (the transformer's ``layers``), sliced along its leading axis."""
+    if isinstance(like, dict):
+        if set(like) != set(ref):
+            raise ValueError(f"{name}: keys {sorted(ref)}, expected {sorted(like)}")
+        return {k: _moment_tree(like[k], ref[k], f"{name}.{k}") for k in sorted(like)}
+    if isinstance(like, list):
+        if isinstance(ref, dict):
+            ref = [{k: np.asarray(v)[i] for k, v in ref.items()} for i in range(len(like))]
+        if len(ref) != len(like):
+            raise ValueError(f"{name}: {len(ref)} entries, expected {len(like)}")
+        return [_moment_tree(a, b, f"{name}[{i}]") for i, (a, b) in enumerate(zip(like, ref))]
+    arr = np.asarray(ref)
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"{name}: shape {arr.shape}, expected {tuple(like.shape)}")
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(like.device)
+
+
+def load_opt_state(params, state) -> OptState:
+    """The reference's ``OptState`` with numpy leaves (``jax.tree.map(
+    np.asarray, state)``) as the port's, for the port's parameter tree
+    ``params``: the step as an int32 tensor, the moments f32 in
+    ``params``' structure on its leaves' devices."""
+    dev = tree_leaves(params)[0].device
+    return OptState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=dev),
+        mu=_moment_tree(params, state.mu, "mu"),
+        nu=None if state.nu is None else _moment_tree(params, state.nu, "nu"),
+    )
+
+
 __all__ = [
     "load_dimenet",
     "load_gat",
     "load_gcn",
     "load_mgn",
+    "load_opt_state",
     "load_sage",
     "load_transformer",
     "load_widedeep",

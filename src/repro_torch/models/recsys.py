@@ -20,8 +20,12 @@ host (:meth:`WideDeep.rows`).  The MLP and the retrieval product are
 plain ``torch`` matrix products, as the reference leaves them to XLA
 (float32; TF32 stays off).
 
-Serving only: the parameters do not require gradients.  The training
-step comes with the port of ``optim/``.
+The module is built frozen for serving.  Training (:func:`make_train_step`,
+the ``train_batch`` cell) runs the reference's functional forward over
+the parameter tree (:meth:`WideDeep.param_tree`) on the plain route:
+``table[rows]`` gathers, whose gradient is a dense scatter into the
+tables, as the reference's is; B5 has no backward (its wrapper raises on
+inputs that require grad).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.common import MAX_INT32, round_up
 from repro_torch.kernels.embedding_bag import embedding_bag_op, embedding_bag_ref
 from repro_torch.models.common import dense_init, embed_init, mlp
+from repro_torch.optim import make_train_step as _make_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,21 +100,46 @@ class WideDeep(nn.Module):
             raise ValueError(f"{cfg.name}: {cfg.total_vocab} table rows exceed int32 ids")
         dims = (cfg.deep_in,) + tuple(cfg.mlp_dims) + (1,)
         zeros = lambda *shape: torch.zeros(shape, dtype=cfg.dtype, device=dev)  # noqa: E731
+        self._bind(cfg, {
+            # deep embedding table, all fields stacked with row offsets
+            "table": embed_init(gen, cfg.total_vocab, cfg.embed_dim, cfg.dtype),
+            # wide: one scalar weight per categorical value (linear over one-hot)
+            "wide_table": zeros(cfg.total_vocab),
+            "wide_dense": zeros(cfg.n_dense),
+            "bias": zeros(),
+            "mlp_w": [dense_init(gen, a, b, cfg.dtype) for a, b in zip(dims[:-1], dims[1:])],
+            "mlp_b": [zeros(b) for b in dims[1:]],
+        }, use_kernel)
+
+    @classmethod
+    def from_params(cls, cfg: WideDeepConfig, params: dict, *,
+                    use_kernel: bool = True) -> "WideDeep":
+        """The model over an existing parameter tree (:meth:`param_tree`'s
+        layout): its parameters alias the tree's tensors, nothing is copied."""
+        if cfg.total_vocab > MAX_INT32:
+            raise ValueError(f"{cfg.name}: {cfg.total_vocab} table rows exceed int32 ids")
+        model = cls.__new__(cls)
+        nn.Module.__init__(model)
+        model._bind(cfg, params, use_kernel)
+        return model
+
+    def _bind(self, cfg: WideDeepConfig, params: dict, use_kernel: bool) -> None:
         self.cfg = cfg
         self.use_kernel = use_kernel
-        # deep embedding table, all fields stacked with row offsets
-        self.table = _param(embed_init(gen, cfg.total_vocab, cfg.embed_dim, cfg.dtype))
-        # wide: one scalar weight per categorical value (linear over one-hot)
-        self.wide_table = _param(zeros(cfg.total_vocab))
-        self.wide_dense = _param(zeros(cfg.n_dense))
-        self.bias = _param(zeros())
-        self.mlp_w = nn.ParameterList(
-            _param(dense_init(gen, a, b, cfg.dtype)) for a, b in zip(dims[:-1], dims[1:])
-        )
-        self.mlp_b = nn.ParameterList(_param(zeros(b)) for b in dims[1:])
+        for name in ("table", "wide_table", "wide_dense", "bias"):
+            setattr(self, name, _param(params[name]))
+        self.mlp_w = nn.ParameterList(_param(w) for w in params["mlp_w"])
+        self.mlp_b = nn.ParameterList(_param(b) for b in params["mlp_b"])
         # row offset of each field in the stacked tables (int32: checked above)
+        dev = self.table.device
         offsets = torch.arange(cfg.n_sparse, dtype=torch.int32, device=dev) * cfg.vocab_per_field
         self.register_buffer("field_offsets", offsets, persistent=False)
+
+    def param_tree(self) -> dict:
+        """The parameters as the reference's pytree."""
+        return {"table": self.table, "wide_table": self.wide_table,
+                "wide_dense": self.wide_dense, "bias": self.bias,
+                "mlp_w": list(self.mlp_w), "mlp_b": list(self.mlp_b)}
 
     # ------------------------------------------------------------- inputs
     def rows(self, sparse_ids: np.ndarray) -> torch.Tensor:
@@ -204,6 +234,42 @@ class WideDeep(nn.Module):
         return (q @ candidates.T)[0]
 
 
+def _offset_ids(cfg: WideDeepConfig, sparse_ids: torch.Tensor) -> torch.Tensor:
+    """(B, n_sparse) per-field ids → global rows of the stacked tables."""
+    offsets = torch.arange(cfg.n_sparse, device=sparse_ids.device) * cfg.vocab_per_field
+    return sparse_ids.long() + offsets
+
+
+def widedeep_forward(cfg: WideDeepConfig, params: dict, sparse_ids: torch.Tensor,
+                     dense_feats: torch.Tensor) -> torch.Tensor:
+    """The reference's ``widedeep_forward`` over the parameter tree, plain
+    ops: CTR logits ``(B,)`` from per-field ids ``(B, n_sparse)`` (on the
+    tables' device; not range-checked) and dense features."""
+    rows = _offset_ids(cfg, sparse_ids)  # (B, F)
+    emb = params["table"][rows]  # (B, F, D) gather
+    deep_in = torch.cat([emb.reshape(emb.shape[0], -1), dense_feats], dim=-1)
+    deep = mlp(deep_in, params["mlp_w"], params["mlp_b"])
+    wide = params["wide_table"][rows].sum(dim=-1) + dense_feats @ params["wide_dense"]
+    return deep[..., 0] + wide + params["bias"]
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy on logits, in f32 (the reference's
+    ``bce_loss``)."""
+    x = logits.float()
+    return torch.mean(torch.clamp(x, min=0.0) - x * labels + torch.log1p(torch.exp(-x.abs())))
+
+
+def make_train_step(cfg: WideDeepConfig, optimizer):
+    """``train_step(params, opt_state, batch)`` on the batch keys
+    ``sparse``, ``dense``, ``labels``: BCE of :func:`widedeep_forward`,
+    every gradient, the optimizer's update (``repro``'s ``make_train_step``)."""
+    return _make_step(
+        lambda p, b: bce_loss(widedeep_forward(cfg, p, b["sparse"], b["dense"]), b["labels"]),
+        optimizer,
+    )
+
+
 def make_serve(model: WideDeep):
     """Counterpart of ``repro.models.recsys.make_serve``."""
     return model.serve
@@ -214,4 +280,5 @@ def make_retrieval_scorer(model: WideDeep):
     return model.retrieval_score
 
 
-__all__ = ["WideDeep", "WideDeepConfig", "make_retrieval_scorer", "make_serve"]
+__all__ = ["WideDeep", "WideDeepConfig", "bce_loss", "make_retrieval_scorer", "make_serve",
+           "make_train_step", "widedeep_forward"]

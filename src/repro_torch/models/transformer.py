@@ -8,7 +8,9 @@ window), ``stablelm-1.6b`` (MHA), ``granite-moe-3b-a800m`` and
 configs with their parameter arithmetic, ``init_params``, ``Transformer``
 (whose ``forward`` and ``hidden_states`` are the reference's functions of
 those names), ``make_prefill``, ``make_decode_step``, ``init_cache`` and
-``cache_spec``.  The training step is not ported (ROADMAP A.9.4).
+``cache_spec``; and training: ``hidden_states``, ``chunked_ce_loss``,
+``loss_fn`` and ``make_train_step``, functions of the parameter tree
+(:meth:`Transformer.param_tree`).
 
 GQA attention takes one of two routes (``Transformer.use_kernel``):
 
@@ -62,22 +64,36 @@ The models call :func:`~repro_torch.parallel.hints.shard_hint` where the
 reference does; with no mesh registered (every path of the port so far)
 each call returns its input.
 
-Serving only: parameters do not require gradients and the entry points
-run without autograd.
+**Training** runs beside the serving entry points, which stay under
+``torch.no_grad()`` with frozen parameters.  The train functions take the
+parameter tree ``{"embed", "final_norm", "lm_head", "layers": [...]}``
+(the reference's keys; the layers a list of per-layer dicts where the
+reference stacks them) and run the layers with autograd: each layer
+checkpointed (``torch.utils.checkpoint``, non-reentrant) when
+``cfg.remat``, as the reference's ``nothing_saveable`` remat; attention
+on the plain route (GQA: ``gqa_attention_ref`` in f32 query chunks of
+``attn_chunk``, MLA: :func:`_chunked_softmax_attn`), each chunk
+checkpointed; the MoE through :func:`_route` and :func:`_dispatch_index`.
+The reference trains with no Pallas kernel either: B6 has no backward
+(its wrapper raises on inputs that require grad).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import gqa_attention_op, gqa_attention_ref
 from repro_torch.models.common import (
-    apply_rope, causal_mask, dense_init, embed_init, rms_norm, swiglu)
+    apply_rope, causal_mask, dense_init, embed_init, rms_norm, softmax_cross_entropy, swiglu)
+from repro_torch.optim import make_train_step as _make_step
+from repro_torch.optim import tree_map
 from repro_torch.parallel.hints import BATCH, TP, shard_hint
 
 @dataclasses.dataclass(frozen=True)
@@ -120,13 +136,13 @@ class TransformerConfig:
     mla: Optional[MLAConfig] = None
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = True  # a training switch of the reference; unused when serving
+    remat: bool = True  # training: checkpoint each layer (unused when serving)
     mla_absorbed: bool = True
     # query-chunked plain attention: caps the live (b, h, chunk, Lk) f32
     # score tensor (repro chunks only when Lq % attn_chunk == 0, the port
     # whenever Lq > attn_chunk; the result is the same)
     attn_chunk: Optional[int] = 1024
-    ce_chunk: Optional[int] = None  # a training switch of the reference
+    ce_chunk: Optional[int] = None  # training: CE over token chunks of this size
 
     @property
     def head_dim(self) -> int:
@@ -289,6 +305,7 @@ def _chunked_softmax_attn(
     *,
     window: Optional[int] = None,
     chunk: Optional[int] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """``repro``'s ``_chunked_softmax_attn``: masked softmax attention
     whose scores are the sum over matching (query, key) pairs, in f32.
@@ -302,7 +319,8 @@ def _chunked_softmax_attn(
     The queries go in chunks of ``chunk`` rows (whenever ``l > chunk``;
     the reference only when ``l % chunk == 0``, the same function), each
     against the keys up to its last row's position (the masked keys past
-    it weigh exactly 0).  Returns ``(b, l, h, x)`` f32.
+    it weigh exactly 0).  ``remat`` (training) checkpoints each chunk, as
+    the reference does.  Returns ``(b, l, h, x)`` f32.
     """
     l, lk = q_list[0].shape[1], k_list[0].shape[1]
     step = chunk if chunk and l > chunk else max(l, 1)
@@ -311,18 +329,32 @@ def _chunked_softmax_attn(
     for a in range(0, l, step):
         e = min(l, a + step)
         hi = min(lk, max(q_offset + e, 1))
-        sc = None
-        for qq, kk in zip(q_list, k_list):
-            contract = "bchx,bmhx->bhcm" if kk.dim() == 4 else "bchx,bmx->bhcm"
-            term = torch.einsum(contract, qq[:, a:e].float(), kk[:, :hi].float())
-            sc = term if sc is None else sc + term
-        sc = sc * scale
-        mask = causal_mask(e - a, hi, q_offset + a, window, device=sc.device)
-        p = torch.softmax(sc.masked_fill(~mask, -1e30), dim=-1)
-        del sc
-        contract = "bhcm,bmhx->bchx" if v32.dim() == 4 else "bhcm,bmx->bchx"
-        outs.append(torch.einsum(contract, p, v32[:, :hi]))
+        qs = [qq[:, a:e] for qq in q_list]
+        ks = [kk[:, :hi] for kk in k_list]
+        args = (q_offset + a, scale, window, len(qs), *qs, *ks, v32[:, :hi])
+        if remat:
+            outs.append(checkpoint(_softmax_attn_chunk, *args, use_reentrant=False))
+        else:
+            outs.append(_softmax_attn_chunk(*args))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _softmax_attn_chunk(q_offset: int, scale: float, window, n: int, *tensors) -> torch.Tensor:
+    """One query chunk of :func:`_chunked_softmax_attn`: ``tensors`` are the
+    ``n`` queries, the ``n`` keys and the values, sliced to the chunk."""
+    q_list, k_list, v32 = tensors[:n], tensors[n : 2 * n], tensors[2 * n]
+    sc = None
+    for qq, kk in zip(q_list, k_list):
+        contract = "bchx,bmhx->bhcm" if kk.dim() == 4 else "bchx,bmx->bhcm"
+        term = torch.einsum(contract, qq.float(), kk.float())
+        sc = term if sc is None else sc + term
+    sc = sc * scale
+    mask = causal_mask(q_list[0].shape[1], k_list[0].shape[1], q_offset, window,
+                       device=sc.device)
+    p = torch.softmax(sc.masked_fill(~mask, -1e30), dim=-1)
+    del sc
+    contract = "bhcm,bmhx->bchx" if v32.dim() == 4 else "bhcm,bmx->bchx"
+    return torch.einsum(contract, p, v32)
 
 
 def _gqa_attention(
@@ -333,6 +365,7 @@ def _gqa_attention(
     cache: Optional[torch.Tensor],  # (2, B, S, hkv, hd) buffer, written in place
     cache_pos: int,
     use_kernel: bool,
+    remat: bool = False,
 ) -> torch.Tensor:
     b, l, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -356,7 +389,7 @@ def _gqa_attention(
     if use_kernel:
         o = gqa_attention_op(q, k_full, v_full, **kw)
     else:
-        o = gqa_attention_ref(q, k_full, v_full, chunk=cfg.attn_chunk, **kw)
+        o = gqa_attention_ref(q, k_full, v_full, chunk=cfg.attn_chunk, remat=remat, **kw)
     return o.reshape(b, l, hq * hd) @ lp.wo
 
 
@@ -367,6 +400,7 @@ def _mla_attention(
     q_pos: torch.Tensor,  # (L,) absolute positions
     cache: Optional[torch.Tensor],  # (B, S, kv_rank + d_rope) buffer, written in place
     cache_pos: int,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Multi-head latent attention (the reference's ``_mla_attention``).
 
@@ -399,7 +433,7 @@ def _mla_attention(
     lk = latent_full.shape[1]
     c_full, krope_full = latent_full[..., :r], latent_full[..., r:]
     scale = 1.0 / ((dn + dr) ** 0.5)
-    kw = dict(window=cfg.window, chunk=cfg.attn_chunk)
+    kw = dict(window=cfg.window, chunk=cfg.attn_chunk, remat=remat)
 
     if cfg.mla_absorbed and cache is not None:
         kvb_w = lp.kv_b.reshape(r, h, dn + dv)
@@ -419,12 +453,14 @@ def _mla_attention(
     return o.reshape(b, l, h * dv) @ lp.o
 
 
-def _attention(cfg, lp, x, q_pos, cache, cache_pos: int, use_kernel: bool) -> torch.Tensor:
+def _attention(cfg, lp, x, q_pos, cache, cache_pos: int, use_kernel: bool,
+               remat: bool = False) -> torch.Tensor:
     """The layer's attention on its normed input: MLA on the plain route,
-    GQA on B6 (``use_kernel``) or its plain version."""
+    GQA on B6 (``use_kernel``) or its plain version; ``remat`` checkpoints
+    each query chunk of the plain route (training)."""
     if cfg.attention == "mla":
-        return _mla_attention(cfg, lp, x, q_pos, cache, cache_pos)
-    return _gqa_attention(cfg, lp, x, q_pos, cache, cache_pos, use_kernel)
+        return _mla_attention(cfg, lp, x, q_pos, cache, cache_pos, remat)
+    return _gqa_attention(cfg, lp, x, q_pos, cache, cache_pos, use_kernel, remat)
 
 
 # ------------------------------------------------------------------ MoE
@@ -563,9 +599,10 @@ def _dense_ffn(lp: TransformerLayer, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- forward
-def _layer(cfg, lp, x, q_pos, cache, cache_pos, use_kernel):
+def _layer(cfg, lp, x, q_pos, cache, cache_pos, use_kernel, remat=False):
     x = shard_hint(x, BATCH, None, None)
-    h = _attention(cfg, lp, rms_norm(x, lp.norm_attn), q_pos, cache, cache_pos, use_kernel)
+    h = _attention(cfg, lp, rms_norm(x, lp.norm_attn), q_pos, cache, cache_pos, use_kernel,
+                   remat)
     x = shard_hint(x + h, BATCH, None, None)
     ffn_in = rms_norm(x, lp.norm_ffn)
     ffn = _moe_ffn(cfg, lp, ffn_in) if cfg.moe is not None else _dense_ffn(lp, ffn_in)
@@ -592,7 +629,20 @@ class Transformer(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
-        params = init_params(cfg, gen)
+        self._bind(cfg, init_params(cfg, gen), use_kernel)
+
+    @classmethod
+    def from_params(cls, cfg: TransformerConfig, params: Dict, *,
+                    use_kernel: bool = True) -> "Transformer":
+        """The model over an existing parameter tree (:meth:`param_tree`'s
+        layout): its parameters alias the tree's tensors, nothing is copied."""
+        model = cls.__new__(cls)
+        nn.Module.__init__(model)
+        model._bind(cfg, params, use_kernel)
+        return model
+
+    def _bind(self, cfg: TransformerConfig, params: Dict, use_kernel: bool) -> None:
+        _check_supported(cfg)
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.embed = _param(params["embed"])
@@ -603,6 +653,12 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def param_tree(self) -> Dict:
+        """The parameters as the reference's pytree, the layers a list of
+        per-layer dicts (the reference stacks them along a leading axis)."""
+        return {"embed": self.embed, "final_norm": self.final_norm, "lm_head": self.lm_head,
+                "layers": [dict(lp.named_parameters()) for lp in self.layers]}
 
     def _tokens(self, tokens) -> torch.Tensor:
         t = torch.as_tensor(tokens, device=self.device)
@@ -679,6 +735,98 @@ class Transformer(nn.Module):
         return logits[:, -1], caches
 
 
+# ------------------------------------------------------------------ training
+def _tokens_of(tokens, device) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=device).long()
+
+
+def hidden_states(cfg: TransformerConfig, params: Dict, tokens) -> torch.Tensor:
+    """The reference's ``hidden_states`` over the parameter tree, with
+    autograd: embedding, every layer (checkpointed when ``cfg.remat``; the
+    attention on the plain route, each query chunk checkpointed) and the
+    final norm, ``(B, L, d)``."""
+    _check_supported(cfg)
+    embed = params["embed"]
+    tokens = _tokens_of(tokens, embed.device)
+    x = embed[tokens]
+    q_pos = torch.arange(tokens.shape[1], device=x.device)
+
+    def layer(lp, x):
+        return _layer(cfg, types.SimpleNamespace(**lp), x, q_pos, None, 0, False, remat=True)
+
+    for lp in params["layers"]:
+        x = checkpoint(layer, lp, x, use_reentrant=False) if cfg.remat else layer(lp, x)
+    return rms_norm(x, params["final_norm"])
+
+
+def _masked_logits(cfg: TransformerConfig, x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
+    out = x @ lm_head
+    if cfg.padded_vocab != cfg.vocab:
+        pad = torch.arange(cfg.padded_vocab, device=out.device) >= cfg.vocab
+        out = out.masked_fill(pad, -1e30)
+    return out
+
+
+def _chunk_ce(cfg, lm_head, xs, ys) -> torch.Tensor:
+    logits = _masked_logits(cfg, xs, lm_head).float()
+    gold = torch.gather(logits, -1, ys[:, None])[:, 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def chunked_ce_loss(cfg: TransformerConfig, params: Dict, tokens, labels) -> torch.Tensor:
+    """Mean CE computed ``cfg.ce_chunk`` tokens at a time, each chunk's
+    logits checkpointed (never kept for backward): the live logit buffer
+    is (ce_chunk, V), not (B·L, V).  Unchunked when the token count is
+    not a multiple of the chunk, as the reference."""
+    x = hidden_states(cfg, params, tokens)
+    b, l, d = x.shape
+    t = b * l
+    xt = x.reshape(t, d)
+    yt = _tokens_of(labels, x.device).reshape(t)
+    chunk = cfg.ce_chunk
+    if not chunk or t <= chunk or t % chunk:
+        return softmax_cross_entropy(_masked_logits(cfg, xt, params["lm_head"]), yt)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in range(0, t, chunk):
+        total = total + checkpoint(_chunk_ce, cfg, params["lm_head"], xt[a : a + chunk],
+                                   yt[a : a + chunk], use_reentrant=False)
+    return total / t
+
+
+def loss_fn(cfg: TransformerConfig, params: Dict, tokens, labels) -> torch.Tensor:
+    """The train loss: :func:`chunked_ce_loss` when ``cfg.ce_chunk``, else
+    the CE of the full logits (the reference's ``loss_fn``)."""
+    if cfg.ce_chunk:
+        return chunked_ce_loss(cfg, params, tokens, labels)
+    x = hidden_states(cfg, params, tokens)
+    logits = _masked_logits(cfg, x, params["lm_head"])
+    return softmax_cross_entropy(logits, _tokens_of(labels, x.device))
+
+
+def make_train_step(cfg: TransformerConfig, optimizer):
+    """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``
+    on the batch keys ``tokens`` and ``labels`` (the reference's
+    ``make_train_step``; the update in place, after every gradient)."""
+    return _make_step(lambda p, b: loss_fn(cfg, p, b["tokens"], b["labels"]), optimizer)
+
+
+def param_specs(cfg: TransformerConfig) -> Dict:
+    """The parameter tree's shapes and dtypes, nothing allocated: the
+    cells' input specs (:func:`init_params` on the meta device)."""
+    from repro_torch.configs.cells import TensorSpec  # cells imports this module
+
+    params = init_params(cfg, _MetaGenerator())
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), params)
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose draws land on the meta device: shapes only."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 # --------------------------------------------------------------- entry points
 def make_prefill(model: Transformer):
     """Counterpart of ``repro.models.transformer.make_prefill``:
@@ -728,8 +876,13 @@ __all__: List[str] = [
     "TransformerConfig",
     "TransformerLayer",
     "cache_spec",
+    "chunked_ce_loss",
+    "hidden_states",
     "init_cache",
     "init_params",
+    "loss_fn",
     "make_decode_step",
     "make_prefill",
+    "make_train_step",
+    "param_specs",
 ]

@@ -211,7 +211,7 @@ NOT_PORTED_SPECS = [
     ("obs_slo", {"obs": json.loads(QUICKSTART.read_text())["obs"]}, None),
     ("ft", {"ft": {"interval": 2}}, None),
     ("bench", {"bench": {"suites": ["table7_sigma"]}}, None),
-    ("train", {"train": {"arch": "gcn-cora", "steps": 2}}, "A.9"),
+    ("train", {"train": {"arch": "gcn-cora", "steps": 2}}, None),
     ("dryrun", {"dryrun": {}}, "A.9"),
     ("sharded", {"solve": {"backend": "sharded", "devices": 1, "seed_mode": "fixed"}}, None),
 ]
@@ -239,6 +239,20 @@ def test_unported_sections_raise_and_name_their_item(tmp_path, request, override
         assert not (tmp_path / spec.resolved_run_id()).exists()  # nothing written
         # and through the CLI: exit 2, the message on stderr
         assert tcli.main(["run", str(path), "--device", "cpu", "--no-write"]) == 2
+        return
+    if "train" in overrides:  # ported (A.9.4): the train stage beside the others
+        got = {a.kind: a for a in session.run(echo=_quiet)}
+        want = {a.kind: a for a in ra.Session(ra.RunSpec.from_dict(d),
+                                              results_root=str(tmp_path / "ref")).run(echo=_quiet)}
+        assert sorted(got) == sorted(want) == ["eval", "serve", "solve", "train"]
+        assert got["solve"].ranking["candidates"] == want["solve"].ranking["candidates"]
+        t, r = got["train"], want["train"]
+        assert (t.arch, t.family, t.steps, t.retries, t.resumed) == (
+            r.arch, r.family, r.steps, r.retries, r.resumed)
+        assert np.isfinite([t.first_loss, t.last_loss]).all()
+        assert (tmp_path / spec.resolved_run_id() / "train.json").exists()
+        assert tcli.main(["run", str(path), "--only", "train", "--device", "cpu",
+                          "--no-write"]) == 0
         return
     if "bench" in overrides:  # ported (A.6): one cheap suite, written nowhere
         got = session.bench(write=False)
@@ -271,16 +285,17 @@ def test_unported_sections_raise_and_name_their_item(tmp_path, request, override
 
 
 def test_unported_stage_methods_name_their_item(tmp_path):
-    """``bench`` runs on the session's device (here the CPU); ``train`` and
-    ``dryrun`` name their item, and so does a bench suite not ported yet,
-    before the run writes anything."""
+    """``bench`` runs on the session's device (here the CPU); ``train``
+    asks for its section; ``dryrun`` names its item, and so does a bench
+    suite not ported yet, before the run writes anything."""
     spec = ta.RunSpec.from_dict(_quickstart_without_obs(bench={"suites": ["table7_sigma"]}))
     session = ta.Session(spec, results_root=str(tmp_path), device="cpu")
     art = session.bench(write=False)
     assert (art.suites, art.records, art.failures, art.report_paths) == (["table7_sigma"], 12, 0, [])
-    for call, item in ((session.train, "A.9"), (session.dryrun, "A.9")):
-        with pytest.raises(NotImplementedError, match=f"queue {item}"):
-            call()
+    with pytest.raises(ta.SpecError, match="needs a train section"):
+        session.train()
+    with pytest.raises(NotImplementedError, match="queue A.9"):
+        session.dryrun()
     spec = ta.RunSpec.from_dict(_quickstart_without_obs(bench={"suites": ["roofline"]}))
     with pytest.raises(NotImplementedError, match=r"queue A\.9\.5"):
         ta.Session(spec, results_root=str(tmp_path), device="cpu").run(["bench"])
@@ -507,6 +522,7 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import repro_torch.api, repro_torch.serve, repro_torch.launch.cli\n"
         "import repro_torch.scenarios.arrivals, repro_torch.obs\n"
+        "import repro_torch.launch.train, repro_torch.optim, repro_torch.data.lm\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith(('repro.', 'jax'))"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

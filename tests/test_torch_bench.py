@@ -638,7 +638,7 @@ def test_bench_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["10"]  # the ported suites, fig34_parallelism among them
+    assert out.stdout.split() == ["11"]  # the ported suites, fig34_parallelism and lp_on_graph among them
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ or 4 ranks, and XLA's ``xla_ref`` kernel records, whose counterparts
 here are the ``torch_ref`` ones), and its strict metrics
 (iteration counts, accuracy, agreement, the roofline FLOP/byte counts)
 pass ``compare_reports`` against the baseline restricted to those keys.
-``table7_sigma`` and ``table34_deleted`` are also held to the reference
-suites run live.  The CLI runs ``examples/specs/bench_ci.json`` and
+``table7_sigma``, ``table34_deleted`` and ``lp_on_graph`` are also held to
+the reference suites run live.  The CLI runs ``examples/specs/bench_ci.json`` and
 names each suite that is not ported; naming one in ``--only`` exits 2.
 """
 from __future__ import annotations
@@ -37,9 +37,6 @@ BASELINE = load_report(str(ROOT / "benchmarks" / "baseline.json"))
 NOT_EMITTED = {
     "lp_matrix/dhlp2_sharded2@sharded2",
     "lp_matrix/dhlp2_sharded4@sharded4",
-    "lp_on_graph/dhlp2_lp@dense",
-    "lp_on_graph/dhlp2_lp_csr@sparse",
-    "lp_on_graph/gcn@gcn",
     "roofline/dhlp-bio/scale_1m@single",
     "roofline/dhlp-bio/scale_20m@single",
     "roofline/dhlp-bio/scale_1m@multi",
@@ -48,8 +45,9 @@ NOT_EMITTED = {
     "kernels/embedding_bag_ref_b4096@xla_ref",
     "kernels/attention_ref_l256@xla_ref",
 }
-SUITES = ["fig34_parallelism", "kernel_variants", "kernels", "lp_matrix", "scenario_matrix",
-          "serve", "table2_cv", "table34_deleted", "table56_scaling", "table7_sigma"]
+SUITES = ["fig34_parallelism", "kernel_variants", "kernels", "lp_matrix", "lp_on_graph",
+          "scenario_matrix", "serve", "table2_cv", "table34_deleted", "table56_scaling",
+          "table7_sigma"]
 
 
 @pytest.fixture(scope="module")
@@ -84,7 +82,7 @@ def test_registered_suites_are_the_ported_ones():
     assert names == set(SUITES)
     ref_suites = {r["suite"] for r in BASELINE["records"]}
     assert ref_suites == names | set(NOT_PORTED_SUITES)
-    assert NOT_PORTED_SUITES == {"lp_on_graph": "A.9.4", "roofline": "A.9.5"}
+    assert NOT_PORTED_SUITES == {"roofline": "A.9.5"}
 
 
 @pytest.mark.parametrize("suite", SUITES)
@@ -107,7 +105,7 @@ def test_suite_keys_and_strict_metrics_match_the_baseline(cpu_pass, suite):
                                    if record_key(b) == record_key(r))
 
 
-@pytest.mark.parametrize("suite", ["table7_sigma", "table34_deleted"])
+@pytest.mark.parametrize("suite", ["table7_sigma", "table34_deleted", "lp_on_graph"])
 def test_suite_matches_the_reference_run_live(cpu_pass, suite):
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
@@ -174,7 +172,7 @@ def test_cli_runs_bench_ci_on_the_cpu(tmp_path):
     lines = out.stdout.splitlines()
     for suite, item in NOT_PORTED_SUITES.items():
         assert f"skipped {suite}: not ported (ROADMAP {item})" in lines
-    assert "[bench] label=ci suites=10 records=57 failures=0" in lines
+    assert "[bench] label=ci suites=11 records=60 failures=0" in lines
     # --no-write: no report and no run results; the autotune cache the
     # kernel_variants suite's sweep persists (as the reference's does) is all
     left = sorted(str(p.relative_to(cwd)) for p in cwd.rglob("*") if p.is_file())

@@ -81,12 +81,18 @@ class TestRegistry:
 
     @pytest.mark.parametrize("arch", [a for a in jax_registry.ARCH_IDS if a != "dhlp-bio"])
     def test_other_cells_raise_naming_their_queue_items(self, arch):
-        spec = registry.get_arch(arch)
-        with pytest.raises(NotImplementedError, match=r"A\.9\.4.*A\.9\.5"):
-            spec.make_cell(spec.shapes[0])
+        """Every (arch, shape) of ``all_cells()`` builds (the queue items
+        A.9.4's cells once raised for): the reference's kind, donate,
+        meta and skip reason, and its input specs leaf for leaf (the
+        port's per-layer LM parameters stacked as the reference's);
+        ``make_probe_cell`` at 1 and 2 layers likewise."""
+        spec, ref = registry.get_arch(arch), jax_registry.get_arch(arch)
+        for shape in spec.shapes:
+            _assert_cell_is_the_reference(spec.make_cell(shape), ref.make_cell(shape))
         if spec.make_probe_cell is not None:
-            with pytest.raises(NotImplementedError, match=r"A\.9\.4"):
-                spec.make_probe_cell(spec.shapes[0], 1)
+            for trip in (1, 2):
+                _assert_cell_is_the_reference(spec.make_probe_cell(spec.shapes[0], trip),
+                                              ref.make_probe_cell(ref.shapes[0], trip))
 
     @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "minicpm3-4b"])
     def test_moe_and_mla_models_build_and_run_a_forward(self, arch):
@@ -119,6 +125,39 @@ class TestCells:
 
 def _specs(cell):
     return [(tuple(s.shape), _plain(s.dtype)) for s in cell.input_specs]
+
+
+def _spec_leaves(tree):
+    """(shape, dtype) of every spec leaf in flatten order; the port's list
+    of per-layer LM dicts stacked as the reference's ``(L, ...)`` arrays."""
+    if isinstance(tree, cells.TensorSpec):
+        return [(tuple(tree.shape), tree.dtype)]
+    if isinstance(tree, dict):
+        if "layers" in tree and isinstance(tree["layers"], list) and "embed" in tree:
+            layers = tree["layers"]
+            stacked = {k: cells.TensorSpec((len(layers),) + layers[0][k].shape, layers[0][k].dtype)
+                       for k in layers[0]}
+            tree = dict(tree, layers=stacked)
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _spec_leaves(v)]
+    raise TypeError(type(tree))
+
+
+def _ref_spec_leaves(tree):
+    return [(tuple(s.shape), DTYPES[jnp.dtype(s.dtype)] if jnp.dtype(s.dtype) in DTYPES
+             else torch.bool) for s in jax.tree.leaves(tree)]
+
+
+def _assert_cell_is_the_reference(mine, ref):
+    assert (mine.arch, mine.shape, mine.kind, mine.donate, mine.meta, mine.skip_reason) == (
+        ref.arch, ref.shape, ref.kind, ref.donate, ref.meta, ref.skip_reason)
+    assert len(mine.input_specs) == len(ref.input_specs)
+    for a, b in zip(mine.input_specs, ref.input_specs):
+        assert _spec_leaves(a) == _ref_spec_leaves(b)
+    if mine.kind == "train":
+        assert isinstance(mine.step_fn, cells.TrainStep)
+        assert set(mine.input_specs[2]) == set(ref.input_specs[2])
 
 
 class TestLPCell:

@@ -225,6 +225,7 @@ class TestCSRRound:
             "csr_round",
             "lp_round",
             "csr_aggregate",
+            "csr_aggregate_backward",  # B4 again, launched by CSRAggregate's backward
             "embedding_bag",
             "flash_attention",
         }
