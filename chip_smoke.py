@@ -222,9 +222,10 @@ Phases (each raises on failure, so the script exits non-zero):
     kernel route (B4 2 + 1 and 2 + 2 launches) against B4's plain version
     (loss and every gradient at ``F32_TOL``), then 20 timed steps with the
     loss falling; at ``full_graph_sm`` and ``molecule`` the card against
-    the CPU at ``rtol=1e-4, atol=1e-5`` (MeshGraphNet's gradient leaves
-    that miss it element for element, ROADMAP C.3: in norm,
-    ``‖Δ‖₂ ≤ 1e-3·‖g‖₂``); every loss and gradient finite;
+    the CPU at ``rtol=1e-4, atol=1e-5`` (MeshGraphNet against an f64 run
+    of its step on the card instead, ROADMAP C.3; its leaves that miss it
+    element for element in norm, ``‖Δ‖₂ ≤ 1e-3·‖g‖₂``); every loss and
+    gradient finite;
     (c) ``wide-deep`` ``FULL`` at ``train_batch`` (65,536), 5 steps; (d)
     ``h2o-danube-1.8b`` and ``granite-moe-3b-a800m`` ``FULL`` at
     ``train_4k``'s 4,096 tokens with the batch cut to what fits
@@ -232,6 +233,17 @@ Phases (each raises on failure, so the script exits non-zero):
     the bf16 peak (not gated); (e) ``python -m repro_torch run`` on
     docs/runspec.md's train example with a ``ckpt_dir``: one retry, the
     final checkpoint bit for bit a clean run's, and a longer rerun resumed.
+19. the dry run (run before phase 14; it launches no kernel: each cell's
+    step is traced on fake tensors laid out as DTensors over the 16×16 and
+    2×16×16 production meshes, on the host's CPU), the sweep's seconds
+    printed: (a) ``python -m repro_torch run`` with a ``dryrun`` section,
+    ``dhlp-bio`` at ``scale_1m`` and ``scale_20m`` on both meshes, every
+    record ``ok``, one all-reduce of N × (local seed columns) × 4 B a round
+    and no all-gather, ``scale_1m@single`` within 5 % of the reference
+    sample's 568,920,240 FLOPs per device; (b) that census through the
+    ``roofline`` suite (``REPRO_DRYRUN_ARTIFACTS``), its terms on this
+    card's peaks; (c) one cell per other family by ``run_cell``
+    (``DRYRUN_FAMILY_CELLS``), each ``ok`` with FLOPs counted.
 
 Phases 4, 6, 7, 9, 10, 10c, 11 and 17 (a) each also trace calls with
 ``torch.profiler`` (after one untraced warm-up call).
@@ -1550,9 +1562,6 @@ def entry_point_phase(torch, np, dev, bundle, main_solve, b1_ms, b3_ms) -> dict:
 # emit, with the queue item or the cards each waits for
 BENCH_HOST_CLASS = "h100-1card-sandbox"
 BENCH_NOT_PORTED = {
-    "roofline/dhlp-bio/scale_1m@single": "A.9.5",
-    "roofline/dhlp-bio/scale_20m@single": "A.9.5",
-    "roofline/dhlp-bio/scale_1m@multi": "A.9.5",
     # XLA's route through the oracles: the port's torch_ref records are
     # their counterparts, under another backend key
     "kernels/lp_round_ref_512x256@xla_ref": "-",
@@ -2922,10 +2931,12 @@ LM_TRAIN_STEPS = 3  # (d)
 LM_TRAIN_SEQ = 4096  # train_4k's sequence, not cut
 LM_TRAIN_BATCHES = {"h2o-danube-1.8b": (8, 4, 2), "granite-moe-3b-a800m": (4, 2, 1)}  # cut from 256
 CLI_TRAIN_STEPS, CLI_TRAIN_FAULT, CLI_RESUME_STEPS = 12, 5, 15  # (e): docs/runspec.md's example
-# (b): MeshGraphNet's gradient leaves that miss MODEL_TOL card vs CPU
-# element for element (ROADMAP C.3: against an f64 run the CPU's f32 is
-# 10x further off than the card's, tools/train_grad_precision.py) are held
-# in norm at this rtol: a wrong or missing term shows at O(1)
+# (b): MeshGraphNet's f32 gradients are held to an f64 run of the same
+# step on the card (ROADMAP C.3: an f32 run on either side rounds its MLP
+# activations, and the 15 LayerNorm'd residual blocks amplify that past
+# MODEL_TOL; tools/train_grad_precision.py --bisect); a leaf still past it
+# element for element is held in norm at this rtol: a wrong or missing
+# term shows at O(1)
 MGN_GRAD_NORM_RTOL = 1e-3
 
 
@@ -3120,26 +3131,37 @@ def kernel_vs_plain_step(torch, np, name, cell, plain_cell, params, batch, fwd, 
         "calls)")
 
 
-def card_vs_cpu_step(torch, np, name, cell, params, batch, norm_rtol=None) -> None:
+def card_vs_cpu_step(torch, np, name, cell, params, batch, norm_rtol=None, f64=False) -> None:
     """One step's loss and gradients on the card against the same cell on
-    the CPU (the plain versions) at ``MODEL_TOL``, element for element.
-    With ``norm_rtol`` (MeshGraphNet, ROADMAP C.3), a gradient leaf past
-    that is held in norm instead, ``‖card − CPU‖₂ ≤ norm_rtol · ‖CPU‖₂``;
-    such leaves are counted and their largest differences printed."""
+    the CPU (the plain versions) at ``MODEL_TOL``, element for element;
+    with ``f64``, against the same step on the card with every tensor in
+    f64 instead (MeshGraphNet, ROADMAP C.3: the CPU's f32 run is no
+    better founded than the card's).  With ``norm_rtol``, a gradient leaf
+    past that is held in norm instead, ``‖card − ref‖₂ ≤ norm_rtol ·
+    ‖ref‖₂``; such leaves are counted and their largest differences
+    printed."""
     from repro_torch.optim import tree_leaves, tree_map, value_and_grad
 
     loss, grads = value_and_grad(cell.step_fn.loss_fn, params, batch)
-    cpu = lambda t: t.detach().cpu().clone()  # noqa: E731
-    c_loss, c_grads = value_and_grad(cell.step_fn.loss_fn, tree_map(cpu, params),
-                                     {k: v.cpu() for k, v in batch.items()})
+    if f64:
+        ref = "card f64"
+        up = lambda t: t.detach().double() if t.is_floating_point() else t  # noqa: E731
+        c_loss, c_grads = value_and_grad(cell.step_fn.loss_fn, tree_map(up, params),
+                                         {k: up(v) for k, v in batch.items()})
+        c_loss, c_grads = c_loss.cpu(), tree_map(lambda t: t.detach().cpu().float(), c_grads)
+    else:
+        ref = "CPU"
+        cpu = lambda t: t.detach().cpu().clone()  # noqa: E731
+        c_loss, c_grads = value_and_grad(cell.step_fn.loss_fn, tree_map(cpu, params),
+                                         {k: v.cpu() for k, v in batch.items()})
     all_finite(torch, f"{name} card", loss, grads)
-    e1 = tree_close(torch, np, f"{name} loss, card vs CPU", loss, c_loss, MODEL_TOL)
+    e1 = tree_close(torch, np, f"{name} loss, card vs {ref}", loss, c_loss, MODEL_TOL)
     pairs = [(a.detach().cpu(), b) for a, b in zip(tree_leaves(grads), tree_leaves(c_grads))]
     e2 = max(float((a - b).abs().max()) for a, b in pairs)
     missed = [i for i, (a, b) in enumerate(pairs) if not torch.allclose(a, b, **MODEL_TOL)]
     if missed and norm_rtol is None:
         i = missed[0]
-        fail(f"{name}: gradient leaf {i} {tuple(pairs[i][0].shape)} card vs CPU max|Δ| "
+        fail(f"{name}: gradient leaf {i} {tuple(pairs[i][0].shape)} card vs {ref} max|Δ| "
              f"{float((pairs[i][0] - pairs[i][1]).abs().max()):.3e}")
     worst, worst_i = 0.0, None
     for i in missed:
@@ -3148,7 +3170,7 @@ def card_vs_cpu_step(torch, np, name, cell, params, batch, norm_rtol=None) -> No
         if rel > worst:
             worst, worst_i = rel, i
         if rel > norm_rtol:
-            fail(f"{name}: gradient leaf {i} {tuple(g.shape)} card vs CPU ‖Δ‖/‖g‖ {rel:.3e} "
+            fail(f"{name}: gradient leaf {i} {tuple(g.shape)} card vs {ref} ‖Δ‖/‖g‖ {rel:.3e} "
                  f"(max|Δ| {float((g - c).abs().max()):.3e})")
     tail = ""
     if missed:
@@ -3157,7 +3179,7 @@ def card_vs_cpu_step(torch, np, name, cell, params, batch, norm_rtol=None) -> No
                 f"held in norm: ‖Δ‖/‖g‖ at most {worst:.3e} (leaf {worst_i} "
                 f"{tuple(g.shape)}, max|Δ| {float((g - c).abs().max()):.3e} of max|g| "
                 f"{float(c.abs().max()):.3e}; gate {norm_rtol})")
-    log(f"  {name}: card vs CPU max|Δ| loss {e1:.3e}, gradients {e2:.3e} "
+    log(f"  {name}: card vs {ref} max|Δ| loss {e1:.3e}, gradients {e2:.3e} "
         f"(rtol=1e-4, atol=1e-5){tail}")
 
 
@@ -3271,14 +3293,88 @@ def gnn_train_phase(torch, np, dev) -> dict:
             cell = get_arch(arch).make_cell("molecule")
             batch = gnn_train_batch(torch, np, dev, cell, "molecule")
             params, state = init(cell)
+            mgn = arch == "meshgraphnet"
             card_vs_cpu_step(torch, np, f"{arch} molecule step", cell, params, batch,
-                             norm_rtol=MGN_GRAD_NORM_RTOL if arch == "meshgraphnet" else None)
+                             norm_rtol=MGN_GRAD_NORM_RTOL if mgn else None, f64=mgn)
             train_run(torch, f"{arch} molecule", cell.step_fn, params, state, batch,
                       TRAIN_STEPS_OTHER)
             del batch, params, state
     counts = launch_counts()
     res["b4_fwd"], res["b4_bwd_launches"] = counts["csr_aggregate"], counts["csr_aggregate_backward"]
     return res
+
+
+# phase 19: the dry run (queue A.9.5)
+DRYRUN_SPEC = {"dryrun": {"archs": ["dhlp-bio"], "shapes": ["scale_1m", "scale_20m"],
+                          "mesh": "both"}}
+DRYRUN_FAMILY_CELLS = (("h2o-danube-1.8b", "decode_32k"), ("granite-moe-3b-a800m", "decode_32k"),
+                       ("meshgraphnet", "molecule"), ("wide-deep", "train_batch"))
+DHLP_SAMPLE_FLOPS = 568_920_240  # benchmarks/data/dryrun_sample.jsonl, scale_1m@single
+
+
+def census_line(rec: dict) -> str:
+    cols = ", ".join(f"{k} {c['count']} x / {c['bytes']:,} B" for k, c in rec["collectives"].items()
+                     if c["count"])
+    fb = sum((rec.get("fallbacks") or {}).values())
+    return (f"{rec['arch']}/{rec['shape']}@{rec['mesh']}: {rec['cost']['flops']:,.0f} FLOPs, "
+            f"{rec['cost']['bytes accessed']:,.0f} B accessed per device; {cols or 'no collective'}"
+            f"; {fb} fallbacks; traced in {rec['lower_s']} s")
+
+
+def dryrun_phase() -> None:
+    """Phase 19 (see the module docstring)."""
+    from repro_torch.bench.roofline import load
+    from repro_torch.launch.dryrun import run_cell
+
+    t0 = time.perf_counter()
+    log("== phase 19 (a): python -m repro_torch run with a dryrun section (dhlp-bio, both meshes)")
+    spec_path = OUT_ROOT / "dryrun_spec.json"
+    OUT_ROOT.mkdir(parents=True, exist_ok=True)
+    spec_path.write_text(json.dumps(DRYRUN_SPEC))
+    proc, wall = run_cli(["run", str(spec_path), "--device", CLI_DEVICE, "--results-root",
+                          str(OUT_ROOT)], timeout=600)
+    if proc.returncode != 0:
+        fail(f"run with a dryrun section exited {proc.returncode}: {proc.stderr[-3000:]}")
+    census = sorted(OUT_ROOT.glob("dryrun-*/telemetry/dryrun.jsonl"),
+                    key=lambda p: p.stat().st_mtime)[-1]
+    recs = load(str(census))
+    if sorted((r["shape"], r["mesh"], r["status"]) for r in recs) != [
+            (s, m, "ok") for s in ("scale_1m", "scale_20m") for m in ("multi", "single")]:
+        fail(f"the dhlp-bio census: {[(r['shape'], r['mesh'], r['status']) for r in recs]}")
+    for r in recs:
+        cols, meta = r["collectives"], r["meta"]
+        s_local = meta["seeds"] // (16 if r["mesh"] == "single" else 32)
+        per_round = meta["nodes"] * s_local * 4
+        if (cols["all-reduce"]["count"], cols["all-reduce"]["bytes"]) != (
+                meta["rounds"], meta["rounds"] * per_round) or cols["all-gather"]["count"]:
+            fail(f"dhlp-bio/{r['shape']}@{r['mesh']}: collectives {cols}, expected one all-reduce "
+                 f"of {per_round:,} B a round and no all-gather")
+        log(f"  {census_line(r)}")
+    one = next(r for r in recs if (r["shape"], r["mesh"]) == ("scale_1m", "single"))
+    ratio = one["cost"]["flops"] / DHLP_SAMPLE_FLOPS
+    if abs(ratio - 1) >= 0.05:
+        fail(f"dhlp-bio scale_1m@single: {one['cost']['flops']:,.0f} FLOPs per device, "
+             f"{ratio:.4f} of the reference sample's {DHLP_SAMPLE_FLOPS:,}")
+    log(f"  exit 0 in {wall:.1f} s (process start included); scale_1m@single at {ratio:.4f} of the "
+        f"reference sample's FLOPs (gate: within 5 %), all-reduces of {54_272_000:,} B a round")
+
+    log("== phase 19 (b): that census through the roofline suite (REPRO_DRYRUN_ARTIFACTS)")
+    proc, wall = run_cli(["bench", "--only", "roofline", "--device", CLI_DEVICE, "--no-write"],
+                         env={"REPRO_DRYRUN_ARTIFACTS": str(census)}, timeout=300)
+    rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("roofline/")]
+    if proc.returncode != 0 or "suites=1 records=4 failures=0" not in proc.stderr or len(rows) != 4:
+        fail(f"bench --only roofline on the live census: exit {proc.returncode}, "
+             f"{proc.stderr[-2000:]}")
+    for ln in rows:
+        log(f"    {ln}")
+
+    log("== phase 19 (c): one cell per other family through run_cell on the single mesh")
+    for arch, shape in DRYRUN_FAMILY_CELLS:
+        rec = run_cell(arch, shape, "single")
+        if rec["status"] != "ok" or rec["cost"]["flops"] <= 0:
+            fail(f"{arch}/{shape}: status {rec['status']}, {rec.get('error')}")
+        log(f"  {census_line(rec)}")
+    log(f"  phase 19: the sweep took {time.perf_counter() - t0:.1f} s")
 
 
 def recsys_train_phase(torch, np, dev) -> None:
@@ -4290,6 +4386,13 @@ def main() -> int:
     t0 = time.perf_counter()
     train = training_phase(torch, np, dev)
     log(f"  phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # --------------- 19. the dry run (before the kernel list of phase 14;
+    # it launches no kernel: its counts must stay as the phases left them)
+    before = launch_counts()
+    dryrun_phase()
+    if launch_counts() != before:
+        fail("phase 19 launched a kernel of the port")
 
     # ------------------------------------------------ 14. the kernel list
     log("== phase 14: kernels")

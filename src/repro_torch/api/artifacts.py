@@ -6,9 +6,9 @@ Each :class:`~repro_torch.api.session.Session` stage returns one artifact:
 :class:`ServeArtifact` (workload report), ``bench()`` →
 :class:`BenchArtifact` (BENCH record summary), ``train()`` →
 :class:`TrainArtifact` (guarded training-loop stats), ``dryrun()`` →
-:class:`DryrunArtifact` (per-cell compile census, emitted in the
-telemetry event format so ``benchmarks/roofline.py`` and ``repro obs``
-read the same artifact).  Artifacts carry their heavy payloads (score
+:class:`DryrunArtifact` (per-cell census, emitted in the telemetry
+event format so the ``roofline`` suite and ``repro obs`` read the same
+artifact).  Artifacts carry their heavy payloads (score
 matrices, LPOutputs) in memory and write a JSON summary plus ``.npz``
 arrays via :meth:`write`.
 """
@@ -185,7 +185,7 @@ class ServeArtifact(Artifact):
 
 @dataclasses.dataclass
 class DryrunArtifact(Artifact):
-    """A compile-sweep census: one record per (arch × shape × mesh) cell.
+    """A dry-run census: one record per (arch × shape × mesh) cell.
 
     ``write`` emits ``dryrun.json`` (status roll-up) plus
     ``telemetry/dryrun.jsonl`` — the cells as ``repro_torch.obs`` event lines

@@ -21,9 +21,10 @@ which raises without CUDA; the CPU only with ``device="cpu"``), and so
 does the ``bench`` pass.  The ``sharded`` backend lays its mesh over the
 world that exists (every rank under ``torchrun``) or starts a world of one
 rank; only rank 0 writes run artifacts.  ``train`` runs the guarded
-training loop on the session's device.  The stage whose modules are not
-ported yet raises ``NotImplementedError`` naming its item of
-``ROADMAP.md``'s queue A: ``dryrun`` (A.9).
+training loop on the session's device.  ``dryrun`` traces each cell's
+census on the CPU (fake tensors, nothing allocated).  Every stage of the
+reference is ported; a stage listed in ``_NOT_PORTED_STAGES`` would raise
+``NotImplementedError`` naming its item of ``ROADMAP.md``'s queue A.
 """
 
 from __future__ import annotations
@@ -44,12 +45,12 @@ from repro_torch.api.artifacts import (
     TrainArtifact,
     _write_json,
 )
-from repro_torch.api.spec import BenchSpec, EvalSpec, RunSpec, ServeSpec, SpecError
+from repro_torch.api.spec import BenchSpec, DryrunSpec, EvalSpec, RunSpec, ServeSpec, SpecError
 from repro_torch.device import DeviceLike, resolve_device
 
 _UNSET = object()
 # run sections whose modules are not ported yet -> their ROADMAP.md item
-_NOT_PORTED_STAGES = {"dryrun": "A.9"}
+_NOT_PORTED_STAGES: Dict[str, str] = {}
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -645,7 +646,46 @@ class Session:
         )
 
     def dryrun(self) -> DryrunArtifact:
-        raise not_ported("the dryrun section", _NOT_PORTED_STAGES["dryrun"])
+        """Census-sweep the configured (arch × shape × mesh) cells
+        (:func:`repro_torch.launch.dryrun.run_cell`: each step traced on
+        fake DTensors over the production mesh, on the CPU whatever the
+        session's device).
+
+        The census lands in the telemetry artifact format (see
+        :class:`DryrunArtifact`); the ``roofline`` suite reads it through
+        ``REPRO_DRYRUN_ARTIFACTS``.
+        """
+        from repro_torch.configs import all_cells, get_arch
+        from repro_torch.launch.dryrun import run_cell
+
+        dr = self.spec.dryrun if self.spec.dryrun is not None else DryrunSpec()
+        if dr.archs:
+            cells = []
+            for arch in dr.archs:
+                shapes = dr.shapes or tuple(get_arch(arch).shapes)
+                cells.extend((arch, s) for s in shapes)
+        else:
+            cells = all_cells(include_extra=dr.include_extra)
+        meshes = ["single", "multi"] if dr.mesh == "both" else [dr.mesh]
+
+        tel = self.telemetry
+        t0 = time.perf_counter()
+        recs: List[Dict[str, Any]] = []
+        offsets: List[float] = []
+        for arch, shape in cells:
+            for mesh_kind in meshes:
+                rec = run_cell(arch, shape, mesh_kind)
+                recs.append(rec)
+                offsets.append(time.perf_counter() - t0)
+                tel.event("dryrun.cell", arch=arch, shape=shape, mesh=mesh_kind,
+                          status=rec.get("status"), lower_s=rec.get("lower_s"))
+        return DryrunArtifact(
+            run_id=self.run_id,
+            seconds=time.perf_counter() - t0,
+            mesh=dr.mesh,
+            cells=recs,
+            offsets=offsets,
+        )
 
     # ----------------------------------------------------------------- run
     def run(

@@ -27,7 +27,7 @@ Sections:
 * :class:`BenchSpec`   — optional registered-suite benchmark pass;
 * :class:`ObsSpec`     — optional telemetry level (off / metrics / trace
   / profile, DESIGN.md §14);
-* :class:`DryrunSpec`  — optional multi-pod compile sweep whose HLO
+* :class:`DryrunSpec`  — optional multi-pod dry run whose per-device
   census lands in the telemetry artifact format.
 """
 
@@ -661,13 +661,13 @@ class TrainSpec:
 
 @dataclasses.dataclass(frozen=True)
 class DryrunSpec:
-    """A multi-pod compile sweep (lower + compile every config cell).
+    """A multi-pod dry run: every config cell's per-device census on the
+    production meshes (:mod:`repro_torch.launch.dryrun`).
 
     ``archs=None`` sweeps every assigned (arch × shape) cell; naming
     ``archs`` restricts the sweep (``shapes`` then applies to each named
-    arch).  The per-cell HLO census is emitted through the telemetry
-    artifact format (``telemetry/dryrun.jsonl``) that
-    ``benchmarks/roofline.py`` consumes.
+    arch).  The census is emitted through the telemetry artifact format
+    (``telemetry/dryrun.jsonl``) that the ``roofline`` suite consumes.
     """
 
     archs: Optional[Tuple[str, ...]] = None

@@ -6,11 +6,11 @@ benchmark pass through :func:`run_bench` — same suite registration, same
 report writing, same failure semantics (DESIGN.md §10).
 
 The suites are modules of this package (``repro_torch.bench.suites``
-plus the two matrix suites); importing them registers them.  The
-reference's ``roofline`` suite needs the dry run, not ported yet: a pass
-over every suite prints one ``skipped roofline: not ported (ROADMAP
-A.9.5)`` line, and naming it in ``only`` raises the port's
-``NotImplementedError``.
+plus the two matrix suites); importing them registers them.  Every
+suite of the reference is ported; :data:`NOT_PORTED_SUITES` stays as the
+place to name one that waits for a queue item (a pass over every suite
+prints a ``skipped`` line for each, and naming one in ``only`` raises the
+port's ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -20,9 +20,7 @@ import dataclasses
 from typing import Callable, List, Optional
 
 #: reference suites this package lacks -> the ROADMAP.md queue item they wait for
-NOT_PORTED_SUITES = {
-    "roofline": "A.9.5",  # the dry-run census
-}
+NOT_PORTED_SUITES: dict = {}
 
 
 @dataclasses.dataclass
@@ -44,6 +42,7 @@ def import_suite_modules() -> None:
     import repro_torch.bench.suites.kernel_variants  # noqa: F401
     import repro_torch.bench.suites.kernels  # noqa: F401
     import repro_torch.bench.suites.lp_on_graph  # noqa: F401
+    import repro_torch.bench.suites.roofline  # noqa: F401
     import repro_torch.bench.suites.serve  # noqa: F401
     import repro_torch.bench.suites.table2_cv  # noqa: F401
     import repro_torch.bench.suites.table34_deleted  # noqa: F401

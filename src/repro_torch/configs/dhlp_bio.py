@@ -101,19 +101,48 @@ def lp_step_plain(
     ``(β²·Y + scatter_spmm(src, dst, w, F)).to(F.dtype)``, the sum in f32.
 
     Label columns are independent: ``PLAIN_MESSAGE_BUDGET // E`` of them at
-    a time give the same function with a bounded message tensor."""
+    a time give the same function with a bounded message tensor.  On
+    DTensors (the dry run's sharded census) E and the columns are each
+    rank's own; a step whose local columns need more than one chunk
+    raises there, since a chunk of a sharded column axis is not a shard."""
     beta2 = (1.0 - cfg.alpha) ** 2
     n, s = Y.shape
-    step = max(1, PLAIN_MESSAGE_BUDGET // max(1, src.shape[0]))
     src_l, dst_l = src.long(), dst.long()
+
+    def rounds(y, f):
+        for _ in range(cfg.rounds_per_step):
+            agg = _like(scatter_spmm(src_l, dst_l, w, f, n).float(), F)
+            f = (beta2 * y + agg).to(F.dtype)
+        return f
+
+    e_local, s_local = _local(src).shape[0], _local(Y).shape[1]
+    step = max(1, PLAIN_MESSAGE_BUDGET // max(1, e_local))
+    if step >= s_local:
+        return rounds(Y.float(), F)
+    if hasattr(Y, "to_local"):
+        raise NotImplementedError(
+            f"dhlp-bio: {s_local} local seed columns over {e_local} local edges need "
+            f"{-(-s_local // step)} chunks, and a chunk of a sharded column axis is not a shard")
     out = torch.empty_like(F)
     for c0 in range(0, s, step):
-        y = Y[:, c0 : c0 + step].float()
-        f = F[:, c0 : c0 + step].contiguous()
-        for _ in range(cfg.rounds_per_step):
-            f = (beta2 * y + scatter_spmm(src_l, dst_l, w, f, n).float()).to(F.dtype)
-        out[:, c0 : c0 + step] = f
+        out[:, c0 : c0 + step] = rounds(Y[:, c0 : c0 + step].float(),
+                                        F[:, c0 : c0 + step].contiguous())
     return out
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor; a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _like(t: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
+    """``t`` in the layout of the loop carry ``carry`` when both are
+    DTensors: each round's sum over the edge shards is reduced before the
+    next round gathers from it, as the reference's ``fori_loop`` carry
+    keeps its sharding.  A plain tensor is returned as it is."""
+    if hasattr(carry, "placements"):
+        return t.redistribute(carry.device_mesh, carry.placements)
+    return t
 
 
 def make_lp_step(cfg: DHLPBioConfig):

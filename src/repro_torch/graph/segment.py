@@ -26,7 +26,7 @@ def _expand(segment_ids: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    return _zeros(data, num_segments).index_add_(0, segment_ids.long(), data)
+    return _zeros(data, num_segments).index_add(0, segment_ids.long(), data)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -43,7 +43,7 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     """Per-segment max; ``-inf`` for an empty segment (JAX's identity)."""
     init = torch.full((num_segments,) + tuple(data.shape[1:]), float("-inf"),
                       dtype=data.dtype, device=data.device)
-    return init.scatter_reduce_(0, _expand(segment_ids, data), data, reduce="amax")
+    return init.scatter_reduce(0, _expand(segment_ids, data), data, reduce="amax")
 
 
 def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

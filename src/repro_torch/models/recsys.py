@@ -246,10 +246,11 @@ def widedeep_forward(cfg: WideDeepConfig, params: dict, sparse_ids: torch.Tensor
     ops: CTR logits ``(B,)`` from per-field ids ``(B, n_sparse)`` (on the
     tables' device; not range-checked) and dense features."""
     rows = _offset_ids(cfg, sparse_ids)  # (B, F)
-    emb = params["table"][rows]  # (B, F, D) gather
+    emb = torch.nn.functional.embedding(rows, params["table"])  # (B, F, D) gather
     deep_in = torch.cat([emb.reshape(emb.shape[0], -1), dense_feats], dim=-1)
     deep = mlp(deep_in, params["mlp_w"], params["mlp_b"])
-    wide = params["wide_table"][rows].sum(dim=-1) + dense_feats @ params["wide_dense"]
+    wide_rows = torch.nn.functional.embedding(rows, params["wide_table"][:, None])[..., 0]
+    wide = wide_rows.sum(dim=-1) + dense_feats @ params["wide_dense"]
     return deep[..., 0] + wide + params["bias"]
 
 

@@ -44,7 +44,8 @@ scale of 1/√(d_head_nope + d_head_rope).
 capacity dispatch with one routing function (:func:`_route`) and the
 dispatch and combine by index (:func:`_dispatch_index`); the reference's
 one-hot einsums stay beside it as its plain version
-(:func:`_dispatch_plain`), which no path of the model runs.  The expert
+(:func:`_dispatch_plain`), which only the dry run's sharded trace runs (a
+masked index has a data-dependent size, which a fake tensor lacks).  The expert
 products are batched ``torch.bmm`` calls (the reference computes them
 outside Pallas too).
 
@@ -296,6 +297,26 @@ def _write_start(cache_pos: int, l: int, s: int) -> int:
     return min(max(pos, 0), s - l)
 
 
+def _write_rows(buf: torch.Tensor, start: int, new: torch.Tensor) -> None:
+    """``buf[:, start : start + l] = new`` for ``l = new.shape[1]`` rows.
+
+    On DTensors (the dry run's trace, sequence split over the mesh) the
+    write is partitioned as XLA partitions a ``dynamic_update_slice`` on a
+    split dim: a whole-buffer write is a copy in the buffer's layout, and a
+    one-row write a select over each rank's own rows, so that no rank
+    gathers the buffer."""
+    l = new.shape[1]
+    if not hasattr(buf, "placements"):
+        buf[:, start : start + l] = new
+    elif l == buf.shape[1]:
+        buf.copy_(new)
+    elif l == 1:
+        rows = torch.arange(buf.shape[1], device=buf.device) == start
+        buf.copy_(torch.where(rows.reshape((1, -1) + (1,) * (buf.dim() - 2)), new, buf))
+    else:
+        raise NotImplementedError(f"a {l}-row write into a split {buf.shape[1]}-row buffer")
+
+
 def _chunked_softmax_attn(
     q_list: Sequence[torch.Tensor],
     k_list: Sequence[torch.Tensor],
@@ -377,8 +398,8 @@ def _gqa_attention(
     k = apply_rope(k, pos, cfg.rope_theta)
     if cache is not None:
         start = _write_start(cache_pos, l, cache.shape[2])
-        cache[0, :, start : start + l] = k
-        cache[1, :, start : start + l] = v
+        _write_rows(cache[0], start, k)
+        _write_rows(cache[1], start, v)
         k_full, v_full = cache[0], cache[1]
     else:
         k_full, v_full = k, v
@@ -426,7 +447,7 @@ def _mla_attention(
     latent = torch.cat([c_kv, k_rope], dim=-1)
     if cache is not None:
         start = _write_start(cache_pos, l, cache.shape[1])
-        cache[:, start : start + l] = latent
+        _write_rows(cache, start, latent)
         latent_full = cache
     else:
         latent_full = latent
@@ -555,7 +576,7 @@ def _dispatch_plain(cfg: TransformerConfig, lp: TransformerLayer, xt: torch.Tens
     """The reference's one-hot dispatch and combine, written out: the
     (g, t, e, c) dispatch and combine tensors, the experts as einsums over
     (g, e, c, d) blocks.  The plain version :func:`_dispatch_index` is
-    held to (tests, ``chip_smoke.py``); no path of the model runs it."""
+    held to (tests, ``chip_smoke.py``); only the dry run's trace runs it."""
     n_g, g_sz, d = xt.shape
     e, k, cap, dt = cfg.moe.padded_experts, cfg.moe.top_k, route.cap, xt.dtype
     dev = xt.device
@@ -584,11 +605,13 @@ def _dispatch_plain(cfg: TransformerConfig, lp: TransformerLayer, xt: torch.Tens
 
 def _moe_ffn(cfg: TransformerConfig, lp: TransformerLayer, x: torch.Tensor) -> torch.Tensor:
     """GShard grouped capacity dispatch (the reference's ``_moe_ffn``):
-    groups, routing (:func:`_route`), the routed experts by index, plus
-    the shared experts."""
+    groups, routing (:func:`_route`), the routed experts by index (on
+    DTensors, the dry run's trace, by the reference's one-hot products),
+    plus the shared experts."""
     b, l, d = x.shape
     xt = _group(cfg, x)
-    out = _dispatch_index(cfg, lp, xt, _route(cfg, lp, xt))
+    dispatch = _dispatch_plain if hasattr(xt, "placements") else _dispatch_index
+    out = dispatch(cfg, lp, xt, _route(cfg, lp, xt))
     if cfg.moe.n_shared:
         out = out + swiglu(xt, lp.shared_gate, lp.shared_up, lp.shared_down)
     return out.reshape(b, l, d)
@@ -691,7 +714,7 @@ class Transformer(nn.Module):
         b, l = tokens.shape
         if caches is not None:
             self._check_caches(caches, b)
-        x = self.embed[tokens]
+        x = torch.nn.functional.embedding(tokens, self.embed)
         q_pos = torch.arange(l, device=x.device) + int(cache_pos)
         for i, lp in enumerate(self.layers):
             cache = None if caches is None else caches[i]
@@ -748,7 +771,7 @@ def hidden_states(cfg: TransformerConfig, params: Dict, tokens) -> torch.Tensor:
     _check_supported(cfg)
     embed = params["embed"]
     tokens = _tokens_of(tokens, embed.device)
-    x = embed[tokens]
+    x = torch.nn.functional.embedding(tokens, embed)
     q_pos = torch.arange(tokens.shape[1], device=x.device)
 
     def layer(lp, x):

@@ -8,14 +8,17 @@ registers the physical mesh for the calling thread
 ``"pod"`` and ``"data"`` axes, ``TP`` its ``"model"`` axis, and an axis
 that the mesh lacks or that does not divide the dimension is dropped.
 
-:func:`shard_hint` returns ``x`` unchanged when no mesh is registered,
-or when every axis it resolves has size 1: one device holds the whole
-tensor, which is what the hint would ask for.  With a mesh whose
-resolved axes are wider, the hint would place a sharded activation
-(``with_sharding_constraint`` in the reference), which the port does not
-do yet: it raises ``NotImplementedError`` naming ROADMAP A.9.5 (the dry
-run, the only caller of the reference that registers a mesh) rather than
-compute replicated.
+:func:`shard_hint` returns ``x`` unchanged when no mesh is registered.
+A DTensor on the mesh is placed as the reference's
+``with_sharding_constraint`` places it: redistributed to the placements
+the spec names (``Shard(d)`` on each mesh dim over dimension ``d``,
+``Replicate()`` elsewhere).  A plain tensor is returned unchanged when
+every axis the spec resolves to has size 1 (one device holds the whole
+tensor, which is what the hint asks for), and raises ``ValueError`` when
+one is wider: it has no layout to change, and passing it through would
+compute replicated where the reference shards.
+The dry run (:mod:`repro_torch.launch.dryrun`) is the caller that
+registers such a mesh (:func:`ambient_mesh`).
 
 The reference's ``make_mesh_compat``, ``shard_map_compat`` and
 ``auto_axis_types`` are shims over JAX versions; they have no torch
@@ -24,6 +27,7 @@ counterpart (the port's meshes come from :func:`.mesh.make_mesh`).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional, Tuple, Union
 
@@ -41,6 +45,18 @@ def set_ambient_mesh(mesh) -> None:
 
 def get_ambient_mesh():
     return getattr(_state, "mesh", None)
+
+
+@contextlib.contextmanager
+def ambient_mesh(mesh):
+    """Register ``mesh`` for the calling thread's hints inside the block;
+    the previous one (or None) again after it."""
+    prev = get_ambient_mesh()
+    set_ambient_mesh(mesh)
+    try:
+        yield mesh
+    finally:
+        set_ambient_mesh(prev)
 
 
 def _resolve(axis, mesh) -> Optional[Union[str, Tuple[str, ...]]]:
@@ -81,13 +97,31 @@ def shard_hint(x, *spec):
         if r is not None and dim % _axes_size(r, mesh) != 0:
             r = None
         resolved.append(r)
-    wide = [r for r in resolved if _axes_size(r, mesh) > 1]
-    if wide:
-        raise NotImplementedError(
-            f"shard_hint over mesh axes {wide}: sharded activations are not ported yet "
-            "(ROADMAP A.9.5: the dry run)"
+    if not hasattr(x, "redistribute"):
+        if all(_axes_size(r, mesh) == 1 for r in resolved):
+            return x
+        raise ValueError(
+            f"shard_hint over mesh axes {[r for r in resolved if r is not None]}: a plain "
+            f"{tuple(x.shape)} tensor has no layout on the mesh (only a DTensor can be placed)"
         )
-    return x
+    want = placements(mesh, resolved)
+    return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
 
 
-__all__ = ["BATCH", "TP", "get_ambient_mesh", "set_ambient_mesh", "shard_hint"]
+def placements(mesh, spec) -> tuple:
+    """DTensor placements, one per mesh dim, of a per-tensor-dim ``spec``
+    (None, a mesh axis or a tuple of them per dim, major axis first): a
+    mesh dim over tensor dim ``d`` is ``Shard(d)``, any other
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, axes in enumerate(spec):
+        for a in (axes,) if isinstance(axes, str) else (axes or ()):
+            out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+__all__ = ["BATCH", "TP", "ambient_mesh", "get_ambient_mesh", "placements", "set_ambient_mesh",
+           "shard_hint"]

@@ -212,7 +212,7 @@ NOT_PORTED_SPECS = [
     ("ft", {"ft": {"interval": 2}}, None),
     ("bench", {"bench": {"suites": ["table7_sigma"]}}, None),
     ("train", {"train": {"arch": "gcn-cora", "steps": 2}}, None),
-    ("dryrun", {"dryrun": {}}, "A.9"),
+    ("dryrun", {"dryrun": {"archs": ["dhlp-bio"], "shapes": ["scale_1m"]}}, None),
     ("sharded", {"solve": {"backend": "sharded", "devices": 1, "seed_mode": "fixed"}}, None),
 ]
 
@@ -254,6 +254,22 @@ def test_unported_sections_raise_and_name_their_item(tmp_path, request, override
         assert tcli.main(["run", str(path), "--only", "train", "--device", "cpu",
                           "--no-write"]) == 0
         return
+    if "dryrun" in overrides:  # ported (A.9.5): the census beside the other stages
+        got = {a.kind: a for a in session.run(echo=_quiet)}
+        assert sorted(got) == ["dryrun", "eval", "serve", "solve"]
+        (rec,) = got["dryrun"].cells
+        sample = json.loads((ROOT / "benchmarks" / "data" / "dryrun_sample.jsonl")
+                            .read_text().splitlines()[0])
+        assert (rec["arch"], rec["shape"], rec["mesh"], rec["status"]) == (
+            sample["arch"], sample["shape"], sample["mesh"], "ok")
+        assert rec["memory"]["argument_size_in_bytes"] == sample["memory"][
+            "argument_size_in_bytes"]
+        run_dir = tmp_path / spec.resolved_run_id()
+        assert (run_dir / "dryrun.json").exists()
+        assert (run_dir / "telemetry" / "dryrun.jsonl").exists()
+        assert tcli.main(["run", str(path), "--only", "dryrun", "--device", "cpu",
+                          "--no-write"]) == 0
+        return
     if "bench" in overrides:  # ported (A.6): one cheap suite, written nowhere
         got = session.bench(write=False)
         want = ra.Session(ra.RunSpec.from_dict(d)).bench(write=False)
@@ -286,20 +302,28 @@ def test_unported_sections_raise_and_name_their_item(tmp_path, request, override
 
 def test_unported_stage_methods_name_their_item(tmp_path):
     """``bench`` runs on the session's device (here the CPU); ``train``
-    asks for its section; ``dryrun`` names its item, and so does a bench
-    suite not ported yet, before the run writes anything."""
-    spec = ta.RunSpec.from_dict(_quickstart_without_obs(bench={"suites": ["table7_sigma"]}))
+    asks for its section; ``dryrun`` sweeps the cells its section names,
+    and the ``roofline`` suite runs, as ``repro``'s stages do; nothing is
+    written without ``write``."""
+    spec = ta.RunSpec.from_dict(_quickstart_without_obs(
+        bench={"suites": ["table7_sigma"]},
+        dryrun={"archs": ["dhlp-bio"], "shapes": ["scale_1m"], "mesh": "multi"}))
     session = ta.Session(spec, results_root=str(tmp_path), device="cpu")
     art = session.bench(write=False)
     assert (art.suites, art.records, art.failures, art.report_paths) == (["table7_sigma"], 12, 0, [])
     with pytest.raises(ta.SpecError, match="needs a train section"):
         session.train()
-    with pytest.raises(NotImplementedError, match="queue A.9"):
-        session.dryrun()
+    dry = session.dryrun()
+    assert (dry.mesh, [c["status"] for c in dry.cells]) == ("multi", ["ok"])
+    assert dry.summary()["statuses"] == {"ok": 1} and len(dry.offsets) == 1
     spec = ta.RunSpec.from_dict(_quickstart_without_obs(bench={"suites": ["roofline"]}))
-    with pytest.raises(NotImplementedError, match=r"queue A\.9\.5"):
-        ta.Session(spec, results_root=str(tmp_path), device="cpu").run(["bench"])
-    assert not list(tmp_path.iterdir())  # refused before spec.json was written
+    (art,) = ta.Session(spec, results_root=str(tmp_path), device="cpu").run(["bench"],
+                                                                              write=False)
+    want = ra.Session(ra.RunSpec.from_dict(_quickstart_without_obs(
+        bench={"suites": ["roofline"]}))).bench(write=False)
+    assert (art.suites, art.records, art.failures) == (want.suites, want.records,
+                                                       want.failures) == (["roofline"], 3, 0)
+    assert not list(tmp_path.iterdir())  # write=False: nothing written
 
 
 @pytest.mark.parametrize("stage", ["solve", "serve_engine", "serve"])

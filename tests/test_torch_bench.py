@@ -470,7 +470,9 @@ def test_roofline_peak_table_by_card(name, model):
 
 def test_roofline_on_the_cpu_uses_the_sxm_table():
     assert roofline.device_peak_model("cpu") == "h100_sxm"
-    assert roofline.PEAKS["h100_sxm"] == {"flops": 67e12, "bytes_per_s": 3.35e12}
+    assert roofline.PEAKS["h100_sxm"] == {"flops": 67e12, "bf16_flops": 989e12,
+                                          "bytes_per_s": 3.35e12, "hbm_bytes": 80e9,
+                                          "link_bytes_per_s": 450e9}
 
 
 # ---------------------------------------------------------------------------
@@ -638,7 +640,7 @@ def test_bench_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["11"]  # the ported suites, fig34_parallelism and lp_on_graph among them
+    assert out.stdout.split() == ["12"]  # every suite of the reference, roofline among them
 
 
 # ---------------------------------------------------------------------------

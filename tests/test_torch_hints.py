@@ -5,8 +5,8 @@ Meshes are fabricated: the reference's ``_resolve`` / ``_axes_size`` read
 ``mesh.axis_names`` and ``mesh.shape``, the port's a ``DeviceMesh``'s
 ``mesh_dim_names`` and ``size(i)``; both get the same axis names and
 sizes.  ``shard_hint`` returns its input with no mesh or a mesh of size-1
-axes, checks the spec's rank, and raises ``NotImplementedError`` naming
-ROADMAP A.9.5 where the reference would shard.
+axes, checks the spec's rank, redistributes a DTensor where the reference
+would shard, and raises ``ValueError`` for a plain tensor there.
 """
 
 import os
@@ -90,9 +90,29 @@ def test_axes_that_do_not_divide_are_dropped(mesh_guard):
 
 
 def test_a_wider_mesh_raises_naming_a95(mesh_guard):
+    """A plain tensor under a wider mesh raises ``ValueError`` (it has no
+    layout to change); a DTensor on the 16×16 production mesh is
+    redistributed to the placements the spec resolves to, as the
+    reference's ``with_sharding_constraint`` places it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_production_mesh
+
     hints.set_ambient_mesh(PortMesh({"data": 2, "model": 4}))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.9\.5"):
+    with pytest.raises(ValueError, match="plain"):
         hints.shard_hint(torch.zeros(4, 8), hints.BATCH, hints.TP)
+    with make_production_mesh() as mesh, hints.ambient_mesh(mesh):
+        with pytest.raises(ValueError, match="plain"):
+            hints.shard_hint(torch.zeros(32, 48), hints.BATCH, hints.TP)
+        x = DTensor.from_local(torch.zeros(2, 48), mesh, [Shard(0), Replicate()])
+        y = hints.shard_hint(x, hints.BATCH, hints.TP)
+        assert tuple(y.placements) == (Shard(0), Shard(1)) and y.to_local().shape == (2, 3)
+        z = hints.shard_hint(y, None, None)  # an all-gather to the replicated layout
+        assert tuple(z.placements) == (Replicate(), Replicate()) and z.to_local().shape == (32, 48)
+        assert hints.shard_hint(y, hints.BATCH, hints.TP) is y  # already in place
+        w = hints.shard_hint(x, hints.BATCH, None)  # 48 % 16 would do, but no TP asked
+        assert w is x
+    assert hints.get_ambient_mesh() is not None  # the mesh registered before the block
 
 
 def test_the_mesh_is_per_thread(mesh_guard):
@@ -108,7 +128,8 @@ def test_the_mesh_is_per_thread(mesh_guard):
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "minicpm3-4b"])
 def test_the_models_hint_where_the_reference_does(mesh_guard, arch):
     """A one-device mesh leaves the forward as it was; a wider one reaches
-    a hint and raises (the models call ``shard_hint`` on their path)."""
+    a hint with plain tensors and raises (the models call ``shard_hint``
+    on their path; only DTensors are placed)."""
     cfg = registry.get_arch(arch).reduced_config
     model = Transformer(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
@@ -116,7 +137,7 @@ def test_the_models_hint_where_the_reference_does(mesh_guard, arch):
     hints.set_ambient_mesh(PortMesh({"data": 1, "model": 1}))
     assert torch.equal(model.prefill(toks, init_cache(cfg, 2, 16, device="cpu"))[0], want)
     hints.set_ambient_mesh(PortMesh({"data": 2, "model": 1}))
-    with pytest.raises(NotImplementedError, match=r"A\.9\.5"):
+    with pytest.raises(ValueError, match="plain"):
         model.prefill(toks, init_cache(cfg, 2, 16, device="cpu"))
 
 

@@ -13,6 +13,16 @@ and the largest difference for card vs CPU, card vs f64 and CPU vs f64.
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 tools/train_grad_precision.py
+
+``--bisect`` needs no card: on the CPU it runs MeshGraphNet ``FULL`` at
+``molecule`` (the same batch builder, CPU draws) in f32 and in f64, then
+in f32 with one group of ops lifted to f64 at a time (the MLPs whole, the
+LayerNorms, the scatter-sum aggregation, the MLPs' products alone), and
+prints for each the leaves past the tolerance against the f64 run and the
+largest difference: the op whose lift closes the gap is the one that
+loses the precision.
+
+    python3 tools/train_grad_precision.py --bisect
 """
 
 from __future__ import annotations
@@ -25,11 +35,66 @@ CASES = (("gcn-cora", "full_graph_sm"), ("gat-cora", "full_graph_sm"),
          ("dimenet", "molecule"), ("meshgraphnet", "molecule"))
 
 
+def bisect(torch, np) -> int:
+    """MeshGraphNet's f32 gradients on the CPU with one op group in f64."""
+    import chip_smoke as c
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn
+    from repro_torch.optim import tree_leaves, tree_map, value_and_grad
+
+    dev = torch.device("cpu")
+    cell = get_arch("meshgraphnet").make_cell("molecule")
+    batch = c.gnn_train_batch(torch, np, dev, cell, "molecule")
+    params, _ = cell.step_fn.init(torch.Generator(device=dev).manual_seed(0), dev)
+    f64 = lambda t: t.detach().double() if t.is_floating_point() else t  # noqa: E731
+    exact = [t.detach() for t in tree_leaves(value_and_grad(
+        cell.step_fn.loss_fn, tree_map(f64, params), {k: f64(v) for k, v in batch.items()})[1])]
+    orig = {"mlp": gnn.mlp, "layer_norm": gnn.layer_norm, "segment_sum": gnn.segment_sum}
+
+    up = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731 (keeps autograd)
+
+    def lifted(fn):  # fn in f64, its result rounded once to f32
+        def run(*args, **kw):
+            args = [[up(t) for t in a] if isinstance(a, list) else
+                    (up(a) if isinstance(a, torch.Tensor) else a) for a in args]
+            return fn(*args, **kw).float()
+        return run
+
+    def products_lifted(x, weights, biases, act=torch.relu):
+        h = x
+        for i, (w, b) in enumerate(zip(weights, biases)):
+            h = (h.double() @ w.double()).float() + b
+            h = act(h) if i < len(weights) - 1 else h
+        return h
+
+    cases = [("f32", {}), ("MLPs in f64", {"mlp": lifted(orig["mlp"])}),
+             ("LayerNorms in f64", {"layer_norm": lifted(orig["layer_norm"])}),
+             ("scatter-sums in f64", {"segment_sum": lifted(orig["segment_sum"])}),
+             ("MLP products alone in f64", {"mlp": products_lifted})]
+    print(f"meshgraphnet molecule on the CPU ({len(exact)} leaves), each against f64:")
+    try:
+        for label, patch in cases:
+            for k, fn in orig.items():
+                setattr(gnn, k, patch.get(k, fn))
+            got = [t.detach().double() for t in tree_leaves(
+                value_and_grad(cell.step_fn.loss_fn, params, batch)[1])]
+            missed = sum(not torch.allclose(a, b, **TOL) for a, b in zip(got, exact))
+            worst = max(float((a - b).abs().max()) for a, b in zip(got, exact))
+            print(f"  {label}: {missed} past, max|Δ| {worst:.3e}", flush=True)
+    finally:
+        for k, fn in orig.items():
+            setattr(gnn, k, fn)
+    return 0
+
+
 def main() -> int:
     root = Path(__file__).resolve().parents[1]
     sys.path[:0] = [str(root / "src"), str(root)]
     import numpy as np
     import torch
+
+    if "--bisect" in sys.argv[1:]:
+        return bisect(torch, np)
 
     if not torch.cuda.is_available():
         print("train_grad_precision: needs a CUDA card", file=sys.stderr)
