@@ -12,6 +12,10 @@ reference's loop over ``scatter_spmm`` (:func:`lp_step_plain`).  On CUDA
 tensors it builds the blocked-CSR width-bucket plan of the legacy loop
 once per call (:func:`lp_plan`) and runs each round as one ``csr_round``
 kernel launch per bucket with base Y and c = β² (:func:`lp_rounds`).
+The plan build runs inside a ``bio.plan`` span, its three parts inside
+``bio.plan.download`` (the edges to the host), ``bio.plan.bucket``
+(``BlockedCSR.from_edges``) and ``bio.plan.upload`` (the buckets to the
+card) (:func:`repro_torch.obs.profiler.hot_span`).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from repro_torch.engine.autotune import DEFAULT_PARAMS
 from repro_torch.engine.sparse import _bucket_round, _device_buckets
 from repro_torch.graph.segment import scatter_spmm
 from repro_torch.kernels.common import on_cpu
+from repro_torch.obs.profiler import hot_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,14 +73,19 @@ def lp_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, num_nodes: in
     ``BlockedCSR.from_edges`` on the host (the engines' default layout),
     then the legacy plan's upload, the weights in ``w``'s dtype.
     Zero-weight edges are dropped (they add nothing)."""
-    bcsr = BlockedCSR.from_edges(
-        src.cpu().numpy(), dst.cpu().numpy(), w.float().cpu().numpy(), num_rows=num_nodes,
-        block_rows=DEFAULT_PARAMS.block_rows, width_mult=DEFAULT_PARAMS.width_mult,
-    )
-    buckets, inv = _device_buckets(bcsr, w.device)
-    if w.dtype != torch.float32:
-        buckets = tuple((r, nbr, wgt.to(w.dtype), live) for r, nbr, wgt, live in buckets)
-    return LPPlan(buckets, inv)
+    with hot_span("bio.plan"):
+        with hot_span("bio.plan.download"):
+            edges = src.cpu().numpy(), dst.cpu().numpy(), w.float().cpu().numpy()
+        with hot_span("bio.plan.bucket"):
+            bcsr = BlockedCSR.from_edges(
+                *edges, num_rows=num_nodes,
+                block_rows=DEFAULT_PARAMS.block_rows, width_mult=DEFAULT_PARAMS.width_mult,
+            )
+        with hot_span("bio.plan.upload"):
+            buckets, inv = _device_buckets(bcsr, w.device)
+            if w.dtype != torch.float32:
+                buckets = tuple((r, nbr, wgt.to(w.dtype), live) for r, nbr, wgt, live in buckets)
+        return LPPlan(buckets, inv)
 
 
 def lp_rounds(plan: LPPlan, Y: torch.Tensor, F: torch.Tensor, cfg: DHLPBioConfig) -> torch.Tensor:

@@ -8,6 +8,10 @@ From the converged label matrix ``F (N, N)`` (all-sources run) we produce:
 The paper symmetrizes mutual labels in the last superstep
 ("the vertices carry out mean operation for their mutual labels"):
 ``out(u, v) = (F[u, v] + F[v, u]) / 2``.
+
+:func:`extract_outputs` runs inside an ``lp.extract`` span and each
+:func:`topk_exclusive` call inside an ``lp.topk`` span
+(:func:`repro_torch.obs.profiler.hot_span`).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.network import NormalizedNetwork, TypePair
+from repro_torch.obs.profiler import hot_span
 
 
 @dataclasses.dataclass
@@ -53,14 +58,15 @@ def symmetrize(F: np.ndarray) -> np.ndarray:
 
 
 def extract_outputs(F: np.ndarray, norm: NormalizedNetwork) -> LPOutputs:
-    out = symmetrize(F)
-    sl = norm.block_slices()
-    sims = [out[sl[i], sl[i]].copy() for i in range(norm.num_types)]
-    inters: Dict[TypePair, np.ndarray] = {}
-    for i in range(norm.num_types):
-        for j in range(i + 1, norm.num_types):
-            inters[(i, j)] = out[sl[i], sl[j]].copy()
-    return LPOutputs(similarities=sims, interactions=inters)
+    with hot_span("lp.extract"):
+        out = symmetrize(F)
+        sl = norm.block_slices()
+        sims = [out[sl[i], sl[i]].copy() for i in range(norm.num_types)]
+        inters: Dict[TypePair, np.ndarray] = {}
+        for i in range(norm.num_types):
+            for j in range(i + 1, norm.num_types):
+                inters[(i, j)] = out[sl[i], sl[j]].copy()
+        return LPOutputs(similarities=sims, interactions=inters)
 
 
 def topk_exclusive(
@@ -76,23 +82,24 @@ def topk_exclusive(
     novel candidates).  ``exclude`` is an index array or boolean mask over
     ``scores``; ties break stably by index like :func:`rank_of`.
     """
-    scores = np.asarray(scores, dtype=np.float64)
-    if scores.ndim != 1:
-        raise ValueError(f"scores must be 1-D, got {scores.shape}")
-    keep = np.ones(scores.shape[0], dtype=bool)
-    if exclude is not None:
-        exclude = np.asarray(exclude)
-        if exclude.dtype == bool:
-            if exclude.shape != scores.shape:
-                raise ValueError(
-                    f"boolean exclude shape {exclude.shape} != {scores.shape}"
-                )
-            keep &= ~exclude
-        elif exclude.size:
-            keep[exclude.astype(np.int64)] = False
-    candidates = np.nonzero(keep)[0]
-    order = np.argsort(-scores[candidates], kind="stable")
-    return candidates[order[:top_k]]
+    with hot_span("lp.topk"):
+        scores = np.asarray(scores, dtype=np.float64)
+        if scores.ndim != 1:
+            raise ValueError(f"scores must be 1-D, got {scores.shape}")
+        keep = np.ones(scores.shape[0], dtype=bool)
+        if exclude is not None:
+            exclude = np.asarray(exclude)
+            if exclude.dtype == bool:
+                if exclude.shape != scores.shape:
+                    raise ValueError(
+                        f"boolean exclude shape {exclude.shape} != {scores.shape}"
+                    )
+                keep &= ~exclude
+            elif exclude.size:
+                keep[exclude.astype(np.int64)] = False
+        candidates = np.nonzero(keep)[0]
+        order = np.argsort(-scores[candidates], kind="stable")
+        return candidates[order[:top_k]]
 
 
 def rank_of(scores: np.ndarray, index: int) -> int:

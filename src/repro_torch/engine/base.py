@@ -28,6 +28,7 @@ import numpy as np
 from repro_torch.core.network import NormalizedNetwork, seeds_identity
 from repro_torch.core.solver import LPConfig, SolveResult, coerce_normalized
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.profiler import hot_span
 
 # `auto` picks dense while the (N, N) fused operator stays comfortably
 # in device memory (4096² f32 = 64 MB) AND the network is dense enough
@@ -145,7 +146,8 @@ class LPEngine(abc.ABC):
         """``prepare`` + ``solve`` with the shared seed/F0 validation."""
         op = self.prepare(net)
         n = op.num_nodes
-        Y = seeds_identity(n) if seeds is None else np.asarray(seeds)
+        with hot_span("lp.seeds"):
+            Y = seeds_identity(n) if seeds is None else np.asarray(seeds)
         if Y.ndim == 1:
             Y = Y[:, None]
         if Y.shape[0] != n:

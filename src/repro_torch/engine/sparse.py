@@ -24,7 +24,11 @@ the per-round gather panel in bfloat16 with f32 state and accumulation;
 the legacy loops ignore it and run in f32, as the reference's do.
 
 Every loop is a host loop that pays one ``bool(active.any())`` sync per
-round (per inner round for DHLP-1's inner loop).
+round (per inner round for DHLP-1's inner loop).  The fused loops and
+``solve`` open :func:`~repro_torch.obs.profiler.hot_span` ranges: one
+``lp.round`` per outer round, ``lp.halt`` around each of those syncs,
+``lp.upload`` / ``lp.download`` around a seed chunk's trips to and from
+the card.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from repro_torch.kernels.segment_reduce import (
     live_rows,
 )
 from repro_torch.kernels.segment_reduce.ref import _aggregate_f32
+from repro_torch.obs.profiler import hot_span
 
 _STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -285,6 +290,12 @@ def _device_plan(bcsr, *, storage: str, device, weight_scale: float = 1.0):
     )
 
 
+def _any(mask: torch.Tensor) -> bool:
+    """``bool(mask.any())``: the host waits here for the card's queue."""
+    with hot_span("lp.halt"):
+        return bool(mask.any())
+
+
 def _plan_round(buckets, F, base, *, c, use_kernel, storage, slots_per_block=None):
     """One fused superstep over a permuted-space plan.
 
@@ -351,27 +362,28 @@ def _dhlp2_plan_loop(
     active = torch.ones(s, dtype=torch.bool, device=Y.device)
     col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
     it = 0
-    while it < max_iter and bool(active.any()):
-        base = Yp if seed_mode == "fixed" else F
-        Fn, delta = _plan_round(
-            buckets,
-            F,
-            base,
-            c=beta2,
-            use_kernel=use_kernel,
-            storage=storage,
-            slots_per_block=slots_per_block,
-        )
-        if momentum:
-            # the kernel residual is pre-momentum; fold the heavy-ball
-            # term in and recompute — still gather-free in permuted space
-            Fn = Fn + momentum * (F - F_prev)
-            delta = (Fn - F).abs().amax(dim=0)
-        Fn = torch.where(active[None, :], Fn, F)
-        col_iters += active.int()
-        active = active & ~(delta < sigma)
-        F_prev, F = F, Fn
-        it += 1
+    while it < max_iter and _any(active):
+        with hot_span("lp.round"):
+            base = Yp if seed_mode == "fixed" else F
+            Fn, delta = _plan_round(
+                buckets,
+                F,
+                base,
+                c=beta2,
+                use_kernel=use_kernel,
+                storage=storage,
+                slots_per_block=slots_per_block,
+            )
+            if momentum:
+                # the kernel residual is pre-momentum; fold the heavy-ball
+                # term in and recompute — still gather-free in permuted space
+                Fn = Fn + momentum * (F - F_prev)
+                delta = (Fn - F).abs().amax(dim=0)
+            Fn = torch.where(active[None, :], Fn, F)
+            col_iters += active.int()
+            active = active & ~(delta < sigma)
+            F_prev, F = F, Fn
+            it += 1
     return F[rank], it, col_iters
 
 
@@ -427,24 +439,25 @@ def _dhlp1_plan_loop(
     active = torch.ones(s, dtype=torch.bool, device=Y.device)
     col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
     it = tot_inner = 0
-    while it < max_iter and bool(active.any()):
-        src = Y if seed_mode == "fixed" else F
-        Yp = _het_injection(
-            het_buckets, het_base_map, reorder, F, src, beta=beta, storage=storage
-        )
-        Fi, iact = F, active
-        inner_it = 0
-        while inner_it < max_inner and bool(iact.any()):
-            Fn, delta = _plan_round(
-                hom_buckets, Fi, Yp, c=beta, use_kernel=False, storage=storage
+    while it < max_iter and _any(active):
+        with hot_span("lp.round"):
+            src = Y if seed_mode == "fixed" else F
+            Yp = _het_injection(
+                het_buckets, het_base_map, reorder, F, src, beta=beta, storage=storage
             )
-            Fi = torch.where(iact[None, :], Fn, Fi)
-            iact = iact & ~(delta < sigma)
-            inner_it += 1
-        col_iters += active.int()
-        F, active = _halt(F, Fi, active, sigma)
-        it += 1
-        tot_inner += inner_it
+            Fi, iact = F, active
+            inner_it = 0
+            while inner_it < max_inner and _any(iact):
+                Fn, delta = _plan_round(
+                    hom_buckets, Fi, Yp, c=beta, use_kernel=False, storage=storage
+                )
+                Fi = torch.where(iact[None, :], Fn, Fi)
+                iact = iact & ~(delta < sigma)
+                inner_it += 1
+            col_iters += active.int()
+            F, active = _halt(F, Fi, active, sigma)
+            it += 1
+            tot_inner += inner_it
     return F[hom_rank], it, tot_inner, col_iters
 
 
@@ -620,13 +633,15 @@ class SparseCSREngine(LPEngine):
         parts: List[np.ndarray] = []
         outer, inner_tot, cols = 0, 0, []
         for Yc, F0c in zip(chunks, f0_chunks):
-            Yd = self._tensor(Yc)
-            F0d = Yd if F0c is None else self._tensor(F0c)
+            with hot_span("lp.upload"):
+                Yd = self._tensor(Yc)
+                F0d = Yd if F0c is None else self._tensor(F0c)
             F, it, ti, ci = self._solve_chunk(op, Yd, F0d)
-            parts.append(to_numpy_f64(F))
+            with hot_span("lp.download"):
+                parts.append(to_numpy_f64(F))
+                cols.append(ci.cpu().numpy())
             outer = max(outer, it)
             inner_tot += ti
-            cols.append(ci.cpu().numpy())
         return SolveResult(
             F=parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1),
             outer_iters=outer,

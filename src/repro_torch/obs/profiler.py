@@ -22,6 +22,24 @@ live on (not the current one: serve launches from the batcher thread),
 so earlier queued work is not charged to this launch and the time covers
 the launch's device work.  There is no tracing step in the port, so
 every call is recorded; a hooked run is slower than an unhooked one.
+
+Beside the kernel hook, for the same reason, sit the hot-path spans:
+:func:`hot_span` ranges opened inside the engines' host loops, the
+ranking and the ``dhlp-bio`` plan build, where no telemetry handle
+reaches (``lp.seeds``, ``lp.upload``, ``lp.round``, ``lp.halt``,
+``lp.download``, ``lp.extract``, ``lp.topk``, ``bio.plan`` and its parts
+``bio.plan.download`` / ``.bucket`` / ``.upload``).  With no profiler
+recording and no collector installed a call is one global load and one
+C-level check, and returns the shared no-op span.  While a
+``torch.profiler`` records, the span is a ``_RecordFunctionFast`` range:
+a plain ``cpu_op`` event on the profiler's clock, in the same trace as
+the card's kernels.  ``record_function`` is not used there: it makes a
+user annotation, which the profiler mirrors as a device-side
+``gpu_user_annotation`` of the same name around the kernels launched
+inside it, and a reader of the device timeline would count that as
+device work.  With a collector installed (the profile level), the span
+is also a ``trace_span`` of kind ``hot`` in its telemetry, parented under
+whatever span is open, so ``events.jsonl`` carries the same names.
 """
 
 from __future__ import annotations
@@ -32,6 +50,9 @@ import time
 from typing import Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+
+from repro_torch.obs.telemetry import _NULL_SPAN
 
 _COLLECTOR = None
 
@@ -73,6 +94,43 @@ def kernel_time(name: str, t0: Optional[float], out):
     tel.observe(f"kernel.{name}.latency_s", time.perf_counter() - t0)
     tel.count(f"kernel.{name}.calls")
     return out
+
+
+#: whether a ``torch.profiler`` records in this process (one C call)
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _HotSpan:
+    """A profiler range (none while no profiler records) and a telemetry
+    span (the no-op one below the trace level), opened and closed together."""
+
+    __slots__ = ("_range", "_span")
+
+    def __init__(self, name: str, tel):
+        self._range = _RecordFunctionFast(name) if _profiling() else None
+        self._span = tel.trace_span("hot", name)
+
+    def __enter__(self) -> "_HotSpan":
+        self._span.__enter__()
+        if self._range is not None:
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._span.__exit__(*exc)
+
+
+def hot_span(name: str):
+    """A span around host work deep in the hot path (module docstring).
+
+    Use as ``with hot_span("lp.round"): ...``; the names are listed in the
+    module docstring and read by the benchmark's per-layer metrics."""
+    tel = _COLLECTOR
+    if tel is None:
+        return _RecordFunctionFast(name) if _profiling() else _NULL_SPAN
+    return _HotSpan(name, tel)
 
 
 @contextlib.contextmanager

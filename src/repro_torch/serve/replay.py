@@ -101,7 +101,6 @@ def replay_trace(
             )
         )
         if telemetry is not None:
-            telemetry.count("serve.replay.submitted")
             telemetry.maybe_flush()  # submit loop = arrival-side pump
     results = [f.result(timeout=600) for f in futs]
     wall = time.monotonic() - t0
@@ -188,7 +187,6 @@ def play_zipf(
             )
         )
         if telemetry is not None:
-            telemetry.count("serve.replay.submitted")
             telemetry.maybe_flush()  # submit loop = arrival-side pump
     results = [f.result(timeout=600) for f in futures]
     wall = time.monotonic() - t0
