@@ -13,12 +13,14 @@ import torch
 import repro.core as rc
 import repro.scenarios as rs
 import repro_torch.core as tc
+import repro_torch.obs as tobs
 import repro_torch.scenarios as ts
 from repro.core.blocked_csr import blocked_csr_from_network as jax_bcsr
 from repro.engine.sparse import _device_plan as jax_device_plan
 from repro.engine.sparse import _tighten_buckets as jax_tighten
 from repro_torch.core.blocked_csr import blocked_csr_from_network
 from repro_torch.engine.sparse import _device_plan, _tighten_buckets
+from repro_torch.obs import profiler as tprof
 
 
 def _same(a, b):
@@ -143,6 +145,86 @@ def test_extract_outputs_and_topk_identical(bio):
                 rc.topk_exclusive(scores[d], 10, excl),
             )
         assert tc.rank_of(scores[d], 0) == rc.rank_of(scores[d], 0)
+
+
+def _ranking_row(n, kind, rng):
+    """A score row of length ``n``: quantised to a few levels (ties across
+    the cut), with ±inf entries, with NaNs, or all distinct."""
+    if kind == "distinct":
+        return rng.random(n)
+    row = rng.integers(0, 4, n).astype(np.float64) / 4
+    if kind == "inf":
+        row[rng.integers(0, n, 1 + n // 40)] = np.inf
+        row[rng.integers(0, n, 1 + n // 40)] = -np.inf
+    elif kind == "nan":
+        row[rng.integers(0, n, 1 + n // 60)] = np.nan
+    return row
+
+
+def _ranking_exclude(n, kind, rng):
+    if kind == "none":
+        return None
+    if kind == "mask":
+        return rng.random(n) < 0.1
+    if kind == "repeats":
+        idx = rng.integers(0, n, 1 + n // 10)
+        return np.concatenate([idx, idx[: len(idx) // 2]])
+    return np.ones(n, dtype=bool)  # "all": nothing left to rank
+
+
+@pytest.mark.parametrize("exclude", ["none", "mask", "repeats", "all"])
+@pytest.mark.parametrize("kind", ["distinct", "quantised", "inf", "nan"])
+@pytest.mark.parametrize("n", [1, 892, 4396])
+def test_topk_exclusive_matches_reference_index_for_index(n, kind, exclude):
+    rng = np.random.default_rng(n * 131 + len(kind) * 7 + len(exclude))
+    tel = tobs.Telemetry("metrics", run_id="topk")
+    tprof.install_kernel_hook(tel)
+    try:
+        for _ in range(3):
+            row = _ranking_row(n, kind, rng)
+            excl = _ranking_exclude(n, exclude, rng)
+            keep = np.ones(n, dtype=bool)
+            if excl is not None:
+                keep[excl] = False
+            kept = int(keep.sum())
+            for k in sorted({0, 1, 20, max(kept - 1, 0), kept, n, n + 5}):
+                _same(tc.topk_exclusive(row, k, excl), rc.topk_exclusive(row, k, excl))
+                # float32 rows are widened first, in both
+                _same(tc.topk_exclusive(row.astype(np.float32), k, excl),
+                      rc.topk_exclusive(row.astype(np.float32), k, excl))
+    finally:
+        tprof.uninstall_kernel_hook()
+    paths = {p: getattr(tel.metrics.peek(f"rank.topk.{p}"), "value", 0)
+             for p in ("select", "full_sort")}
+    if n > 1 and exclude != "all" and kind != "nan":  # a row to select from
+        assert paths["select"] > 0
+    assert paths["full_sort"] > 0  # k = 0 and k past the kept count
+
+
+def test_extract_outputs_builds_each_block_of_the_symmetrized_F():
+    sizes = (13, 9, 5)
+    rng = np.random.default_rng(4)
+    P = [rng.random((m, m)) for m in sizes]
+    P = [(p + p.T) / 2 for p in P]
+    R = {(i, j): (rng.random((sizes[i], sizes[j])) < 0.3).astype(np.float64)
+         for i in range(3) for j in range(i + 1, 3)}
+    norm = tc.from_numpy(P, R).normalize()
+    n = sum(sizes)
+    F = rng.standard_normal((n, n)) * 10.0 ** rng.integers(-300, 300, (n, n))
+    F[0, 1], F[1, 0], F[2, 3] = np.inf, -np.inf, -0.0
+    whole = tc.symmetrize(F)
+    sl = norm.block_slices()
+    got = tc.extract_outputs(F, norm)
+    assert len(got.similarities) == 3 and sorted(got.interactions) == [(0, 1), (0, 2), (1, 2)]
+    blocks = [(block, whole[sl[i], sl[i]]) for i, block in enumerate(got.similarities)]
+    blocks += [(block, whole[sl[i], sl[j]]) for (i, j), block in got.interactions.items()]
+    for block, want in blocks:  # bit for bit: signed zeros, infinities, NaN
+        _same(block.view(np.int64), want.view(np.int64))
+        assert block.base is None and block.flags.c_contiguous  # its own array
+    with pytest.raises(ValueError, match="square"):
+        tc.extract_outputs(F[:, :-1], norm)
+    with pytest.raises(ValueError, match="square"):
+        tc.symmetrize(F[:-1])
 
 
 def test_oracles_identical(bio):

@@ -154,3 +154,30 @@ def test_spans_land_in_an_installed_telemetry_with_parents(level, recorded, net)
         (part,) = by_name[name]
         assert part["parent"] == plan["id"]
         assert plan["t0"] <= part["t0"] and part["dur_s"] <= plan["dur_s"]
+
+
+def test_topk_counts_the_path_it_takes_under_a_collector():
+    rng = np.random.default_rng(5)
+    row = rng.random(892)
+    known = rng.random(892) < 0.05
+    nan_row = row.copy()
+    known[7] = False
+    nan_row[7] = np.nan  # kept, so among the best: a partition ranks NaN highest
+    tel = to.Telemetry("metrics", run_id="topk")
+    tc.topk_exclusive(row, 20, known)  # no collector: nothing recorded
+    assert tel.metrics.to_lines() == []
+
+    def counts():
+        return {p: getattr(tel.metrics.peek(f"rank.topk.{p}"), "value", 0)
+                for p in ("select", "full_sort")}
+
+    tprof.install_kernel_hook(tel)
+    try:
+        tc.topk_exclusive(row, 20, known)
+        assert counts() == {"select": 1, "full_sort": 0}
+        tc.topk_exclusive(nan_row, 20, known)
+        assert counts() == {"select": 1, "full_sort": 1}
+    finally:
+        tprof.uninstall_kernel_hook()
+    tc.topk_exclusive(nan_row, 20, known)
+    assert counts() == {"select": 1, "full_sort": 1}
