@@ -12,12 +12,15 @@ traffic file:
 
 Each kind sets up in its constructor (inputs from the seed, the program's
 set-up, one warm call of the window's own shapes) and has ``window`` (the
-timed loop), ``end_to_end``, ``counters``, ``describe`` (how the window
-went on the host, printed, not compared) and ``check``; ``check`` runs
-after the window, once the program's state is freed, and returns the
-numbers that are compared with the cell's limits.  ``control=True``
-switches on the program's own bfloat16 path (the control of the
-comparison); the benchmark's runs never set it.
+timed loop, which asks ``done(t0)`` after each call whether the window has
+ended: the runner's :class:`~perfbench.harness.world.Until`, one decision
+for every rank of the cell), ``end_to_end``, ``counters``, ``describe``
+(how the window went on the host, printed, not compared) and ``check``;
+``check`` runs after the window, once the program's state is freed, and
+returns the numbers that are compared with the cell's limits.
+``control=True`` switches on the program's own bfloat16 path (the control
+of the comparison); the benchmark's runs never set it.  More kinds come as
+files (``perfbench/kinds/<kind>.py``; ``harness/spec.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from perfbench.harness import drugnet, graph, trace
+from perfbench.harness import drugnet, graph, trace, world
 from perfbench.reference import lp as ref
 
 _UNTRACED = trace.Tracer(False)
@@ -140,7 +143,8 @@ class SolveLoop:
         self.parts.append((t1 - t0, time.perf_counter() - t1))
         return res, top
 
-    def window(self, seconds, tracer):
+    def window(self, seconds, tracer, done=None):
+        done = done or world.Until(seconds)
         keep = _Reservoir(self.seed)
         self.rounds: List[int] = []
         self.col_rounds: List[np.ndarray] = []
@@ -154,7 +158,7 @@ class SolveLoop:
             self.col_rounds.append(np.asarray(res.per_column_iters))
             keep.offer((res, top))
             last = (res, top)
-            if time.perf_counter() - t0 >= seconds:
+            if done(t0):
                 break
         self.elapsed = time.perf_counter() - t0
         self.solves = n
@@ -269,7 +273,8 @@ class BioStepLoop:
         self.chunk += 1
         return chunk, out
 
-    def window(self, seconds, tracer):
+    def window(self, seconds, tracer, done=None):
+        done = done or world.Until(seconds)
         keep = _Reservoir(self.seed)
         self.parts = []
         n = 0
@@ -279,7 +284,7 @@ class BioStepLoop:
             n += 1
             keep.offer(item)
             last = item
-            if time.perf_counter() - t0 >= seconds:
+            if done(t0):
                 break
         self.elapsed = time.perf_counter() - t0
         self.steps = n

@@ -11,7 +11,14 @@ by adding files and entries, never by editing a file that is there:
 * ``perfbench/cells/<workload>.json``: the cell's correctness limits and
   the readings they were set from;
 * ``perfbench/metrics/<metric>.py``: the reader of one per-layer metric,
-  a ``read(ctx)`` that returns a number or ``None``.
+  a ``read(ctx)`` that returns a number or ``None``;
+* ``perfbench/kinds/<kind>.py``: a traffic kind that the harness does not
+  hold itself (``harness/cells.py::KINDS``): ``Loop``, a class with the
+  interface of the kinds there (the constructor ``Loop(config, traffic,
+  seed, device, control)``, ``window(seconds, tracer, done)``,
+  ``end_to_end``, ``counters``, ``describe``, ``check``), and optionally
+  ``RANGES``, the names of the ranges its window opens besides
+  ``harness/trace.py::SPANS``.  The traffic file names it as ``kind``.
 """
 
 from __future__ import annotations
@@ -23,6 +30,19 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 BENCH_DIR = "perfbench"
+
+
+class UnknownKind(LookupError):
+    pass
+
+
+def _module(path: Path, prefix: str, name: str):
+    """The module of the file at ``path``, loaded under a name of its own."""
+    spec = importlib.util.spec_from_file_location(
+        prefix + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @dataclasses.dataclass
@@ -39,13 +59,19 @@ class Cell:
     def reader(self, metric: str) -> Callable:
         """The ``read`` function of ``perfbench/metrics/<metric>.py``."""
         path = self.root / BENCH_DIR / "metrics" / f"{metric}.py"
-        mod_name = "perfbench_metric_" + metric.replace(".", "_").replace("-", "_")
-        spec = importlib.util.spec_from_file_location(mod_name, path)
-        if spec is None or spec.loader is None:
+        if not path.is_file():
             raise FileNotFoundError(f"no reader for per-layer metric {metric!r} at {path}")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _module(path, "perfbench_metric_", metric).read
+
+    def kind_file(self):
+        """The module of ``perfbench/kinds/<kind>.py`` for this cell's
+        traffic kind; ``UnknownKind``, naming the file, where there is none."""
+        kind = self.traffic["kind"]
+        path = self.root / BENCH_DIR / "kinds" / f"{kind}.py"
+        if not path.is_file():
+            raise UnknownKind(f"traffic kind {kind!r} of cell {self.name!r} is neither the "
+                              f"harness's own nor a file: no {path}")
+        return _module(path, "perfbench_kind_", kind)
 
 
 def _load(path: Path) -> dict:

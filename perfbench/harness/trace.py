@@ -2,16 +2,17 @@
 
 The profiler keeps its events in memory; nothing is written to disk.  The
 benchmark marks the window and its calls into the program with
-``record_function`` ranges (``window``, ``solve``, ``rank``, ``step``);
-the device's kernels, copies and sets are read from the same trace, on
-the same clock.
+``record_function`` ranges (``window``, ``solve``, ``rank``, ``step``),
+and a traffic kind loaded from a file may name more (its ``RANGES``); the
+device's kernels, copies and sets are read from the same trace, on the
+same clock.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,21 +24,26 @@ SPANS = ("window", "solve", "rank", "step")
 
 
 class Tracer:
-    """``span(name)`` marks a call; a no-op when the run is not traced."""
+    """``span(name)`` marks a call; a no-op when the run is not traced.
+    ``ranges``: the names the cell's kind opens besides ``SPANS``."""
 
-    def __init__(self, enabled: bool):
+    def __init__(self, enabled: bool, ranges: Sequence[str] = ()):
         self.enabled = enabled
+        self.ranges = SPANS + tuple(r for r in ranges if r not in SPANS)
         self.prof = None
 
     def span(self, name: str):
-        if name not in SPANS:
-            raise ValueError(f"unknown range {name!r}; the benchmark's are {SPANS}")
+        if name not in self.ranges:
+            raise ValueError(f"unknown range {name!r}; this cell's are {self.ranges}")
         if not self.enabled:
             return contextlib.nullcontext()
         return torch.profiler.record_function(name)
 
     @contextlib.contextmanager
-    def window(self):
+    def window(self, ready=None):
+        """The window, traced when enabled; ``ready()`` runs once the
+        profiler records, before the window's range opens (the ranks of a
+        cell meet there, so their windows open together)."""
         if not self.enabled:
             yield
             return
@@ -46,6 +52,8 @@ class Tracer:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         self.prof = torch.profiler.profile(activities=acts)
         with self.prof:
+            if ready is not None:
+                ready()
             with torch.profiler.record_function("window"):
                 yield
             if torch.cuda.is_available():
@@ -133,9 +141,7 @@ class Trace:
         return {"device_ops": [[n, float(v)] for n, v in ops], "idle_gaps": gaps}
 
 
-def _device_kind(name: str) -> Optional[str]:
-    if name in SPANS:
-        return None
+def _device_kind(name: str) -> str:
     if name.startswith("Memcpy"):
         return "memcpy"
     if name.startswith("Memset"):
@@ -143,8 +149,9 @@ def _device_kind(name: str) -> Optional[str]:
     return "kernel"
 
 
-def read(prof) -> Trace:
-    """Read a finished ``torch.profiler.profile`` into a :class:`Trace`."""
+def read(prof, ranges: Sequence[str] = SPANS) -> Trace:
+    """Read a finished ``torch.profiler.profile`` into a :class:`Trace`;
+    ``ranges`` are the benchmark's range names (a ``Tracer``'s)."""
     dn: List[str] = []
     dk: List[str] = []
     ds: List[int] = []
@@ -158,14 +165,15 @@ def read(prof) -> Trace:
         start = ev.start_ns()
         end = start + ev.duration_ns()
         if ev.device_type() == torch.autograd.DeviceType.CUDA:
-            kind = _device_kind(name)
-            if kind is not None:
+            # a host range mirrored on the device (the benchmark's, a kind's,
+            # "nccl:all_reduce") is no device work
+            if not ev.is_user_annotation():
                 dn.append(name)
-                dk.append(kind)
+                dk.append(_device_kind(name))
                 ds.append(start)
                 de.append(end)
             continue
-        if name in SPANS:
+        if name in ranges:
             spans.setdefault(name, []).append((start, end))
         hn.append(name)
         hs.append(start)
