@@ -175,8 +175,9 @@ class SolveSpec:
     devices: Optional[int] = None  # sharded only
     momentum: float = 0.0
     max_iter: int = 1000
-    # mixed precision (sparse/kernel backends): "bf16" stores operator
-    # weights + the gather panel in bfloat16 (fp32 state/accumulation)
+    # mixed precision (dense/sparse/kernel backends): "bf16" stores operator
+    # weights + the gather panel (dense: each product's F operand) in
+    # bfloat16 (fp32 state/accumulation)
     storage_dtype: str = "f32"
     # consult the persisted blocked-CSR autotune cache (False pins the
     # layout/panel defaults unconditionally)

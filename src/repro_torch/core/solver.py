@@ -12,6 +12,11 @@ The paper's Giraph programs are re-expressed as tensor iterations
 Each loop is a host loop over device tensors; it pays one
 ``bool(active.any())`` synchronisation per round to decide whether to go
 on (the counterpart of the reference's ``lax.while_loop`` condition).
+The loops and ``HeteroLP._run_batched`` open the sparse engine's
+:func:`~repro_torch.obs.profiler.hot_span` ranges: one ``lp.round`` per
+outer round, ``lp.halt`` around each of those syncs (DHLP-1's inner ones
+too), ``lp.upload`` / ``lp.download`` around a seed chunk's trips to and
+from the card.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from repro_torch.core.network import (
 )
 from repro_torch.device import DeviceLike, resolve_device, to_numpy_f64
 from repro_torch.kernels.lp_blockspmm import lp_round_op
+from repro_torch.obs.profiler import hot_span
 
 Algorithm = Literal["dhlp1", "dhlp2"]
 SeedMode = Literal["fixed", "drift"]
@@ -64,9 +70,9 @@ class LPConfig:
     # ``None`` = auto-scale H by 1/(T−1); pass 1.0 for the strictly-literal
     # paper update (which can diverge for T > 2 types).
     hetero_scale: Optional[float] = None
-    # Mixed precision (sparse/kernel backends): "bf16" stores operator
-    # weights and the per-round gather panel in bfloat16 while state and
-    # accumulation stay f32.  "f32" is exact.
+    # Mixed precision: "bf16" stores operator weights and the per-round
+    # gather panel (dense: the F operand of each product) in bfloat16 while
+    # state and accumulation stay f32.  "f32" is exact.
     storage_dtype: Literal["f32", "bf16"] = "f32"
     # Consult the autotune cache for the blocked-CSR layout.  This package
     # has no GPU-keyed cache yet, so both values resolve to the defaults
@@ -117,10 +123,22 @@ class SolveResult:
 
 
 def _mm(A: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
-    """``A @ F`` with an f32 accumulator, returned in ``F.dtype``."""
-    if F.dtype == torch.float32:
+    """``A @ F`` with an f32 accumulator, returned in ``F.dtype``.
+
+    An operator stored in bfloat16 (``storage_dtype="bf16"``) meets F
+    rounded to bfloat16, as the sparse engines' gather panel does; the
+    products of two bfloat16 values are exact in f32, so this is a bf16
+    product with f32 sums."""
+    if A.dtype == F.dtype == torch.float32:
         return A @ F
-    return (A.float() @ F.float()).to(F.dtype)
+    Fq = F.to(A.dtype) if A.dtype == torch.bfloat16 else F
+    return (A.float() @ Fq.float()).to(F.dtype)
+
+
+def _any(mask: torch.Tensor) -> bool:
+    """``bool(mask.any())``: the host waits here for the card's queue."""
+    with hot_span("lp.halt"):
+        return bool(mask.any())
 
 
 def _halt(F, Fn, active, sigma):
@@ -154,15 +172,16 @@ def _dhlp2_step_loop(
     active = torch.ones(s, dtype=torch.bool, device=Y.device)
     col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
     it = 0
-    while it < max_iter and bool(active.any()):
-        src = Y if seed_mode == "fixed" else F
-        # superstep A: heterogeneous injection  y' = βy + αHF
-        Yp = beta * src + alpha * _mm(H, F)
-        # superstep B: homogeneous propagation  f = βy' + αMF
-        Fn = beta * Yp + alpha * _mm(M, F)
-        col_iters += active.int()
-        F, active = _halt(F, Fn, active, sigma)
-        it += 1
+    while it < max_iter and _any(active):
+        with hot_span("lp.round"):
+            src = Y if seed_mode == "fixed" else F
+            # superstep A: heterogeneous injection  y' = βy + αHF
+            Yp = beta * src + alpha * _mm(H, F)
+            # superstep B: homogeneous propagation  f = βy' + αMF
+            Fn = beta * Yp + alpha * _mm(M, F)
+            col_iters += active.int()
+            F, active = _halt(F, Fn, active, sigma)
+            it += 1
     return F, it, col_iters
 
 
@@ -191,18 +210,19 @@ def _dhlp2_fused_loop(
     active = torch.ones(s, dtype=torch.bool, device=Y.device)
     col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
     it = 0
-    while it < max_iter and bool(active.any()):
-        base = Y if seed_mode == "fixed" else F
-        if use_kernel:
-            Fn = lp_round_op(A_eff, F, beta2 * base, c=1.0)
-        else:
-            Fn = beta2 * base + _mm(A_eff, F)
-        if momentum:
-            Fn = Fn + momentum * (F - F_prev)
-        F_prev = F
-        col_iters += active.int()
-        F, active = _halt(F, Fn, active, sigma)
-        it += 1
+    while it < max_iter and _any(active):
+        with hot_span("lp.round"):
+            base = Y if seed_mode == "fixed" else F
+            if use_kernel:
+                Fn = lp_round_op(A_eff, F, beta2 * base, c=1.0)
+            else:
+                Fn = beta2 * base + _mm(A_eff, F)
+            if momentum:
+                Fn = Fn + momentum * (F - F_prev)
+            F_prev = F
+            col_iters += active.int()
+            F, active = _halt(F, Fn, active, sigma)
+            it += 1
     return F, it, col_iters
 
 
@@ -234,7 +254,7 @@ def _dhlp1_loop(
     def inner(Yp, Fi, iact):
         """Solve F = βY' + αMF to tolerance σ on active columns."""
         it = 0
-        while it < max_inner and bool(iact.any()):
+        while it < max_inner and _any(iact):
             Fn = beta * Yp + alpha * _mm(M, Fi)
             Fi, iact = _halt(Fi, Fn, iact, sigma)
             it += 1
@@ -244,14 +264,15 @@ def _dhlp1_loop(
     active = torch.ones(s, dtype=torch.bool, device=Y.device)
     col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
     it, tot_inner = 0, 0
-    while it < max_iter and bool(active.any()):
-        src = Y if seed_mode == "fixed" else F
-        Yp = beta * src + alpha * _mm(H, F)
-        Fn, inner_it = inner(Yp, F, active)
-        col_iters += active.int()
-        F, active = _halt(F, Fn, active, sigma)
-        it += 1
-        tot_inner += inner_it
+    while it < max_iter and _any(active):
+        with hot_span("lp.round"):
+            src = Y if seed_mode == "fixed" else F
+            Yp = beta * src + alpha * _mm(H, F)
+            Fn, inner_it = inner(Yp, F, active)
+            col_iters += active.int()
+            F, active = _halt(F, Fn, active, sigma)
+            it += 1
+            tot_inner += inner_it
     return F, it, tot_inner, col_iters
 
 
@@ -346,9 +367,9 @@ class HeteroLP:
             return self._run_sequential(norm, Y, F0)
         return self._run_batched(norm, Y, F0)
 
-    def _tensor(self, x: np.ndarray) -> torch.Tensor:
+    def _tensor(self, x: np.ndarray, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         return torch.as_tensor(
-            np.ascontiguousarray(x), dtype=self.config.dtype, device=self.device
+            np.ascontiguousarray(x), dtype=dtype or self.config.dtype, device=self.device
         )
 
     # -- batched ------------------------------------------------------------
@@ -366,13 +387,15 @@ class HeteroLP:
         F_parts, outer, inner, col_iters = [], 0, 0, []
         arrays = self.operator_arrays(norm)
         for Yc, F0c in zip(chunks, f0_chunks):
-            Yd = self._tensor(Yc)
-            F0d = Yd if F0c is None else self._tensor(F0c)
+            with hot_span("lp.upload"):
+                Yd = self._tensor(Yc)
+                F0d = Yd if F0c is None else self._tensor(F0c)
             F, it, ii, ci = _solve_columns(cfg, arrays, Yd, F0d, fused=cfg.fused)
-            F_parts.append(to_numpy_f64(F))
+            with hot_span("lp.download"):
+                F_parts.append(to_numpy_f64(F))
+                col_iters.append(ci.cpu().numpy())
             outer = max(outer, int(it))
             inner += int(ii)
-            col_iters.append(ci.cpu().numpy())
         return SolveResult(
             F=F_parts[0] if len(F_parts) == 1 else np.concatenate(F_parts, axis=1),
             outer_iters=outer,
@@ -416,18 +439,21 @@ class HeteroLP:
         reuse the prepared ``split``/``fused`` arrays for its ``round``
         contract.  Keyed by the identity of the live object (held in the
         cache entry, so the address cannot be recycled for another network).
+        With ``storage_dtype="bf16"`` each array is rounded to bfloat16
+        once, from its float64 assembly.
         """
         cfg = self.config
         cache = getattr(self, "_cache", None)
         if cache is not None and cache[0] is norm:
             return cache[1]
+        wdt = torch.bfloat16 if cfg.storage_dtype == "bf16" else cfg.dtype
         H, M = norm.assemble_dense()
         H = H * cfg.resolved_hetero_scale(norm.num_types)
-        out = {"split": (self._tensor(H), self._tensor(M))}
+        out = {"split": (self._tensor(H, wdt), self._tensor(M, wdt))}
         if cfg.alg == "dhlp2" and cfg.fused:
             beta = 1.0 - cfg.alpha
             A_eff = cfg.alpha * beta * H + cfg.alpha * M
-            out["fused"] = (self._tensor(A_eff), beta * beta)
+            out["fused"] = (self._tensor(A_eff, wdt), beta * beta)
         self._cache = (norm, out)
         return out
 

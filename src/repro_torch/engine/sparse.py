@@ -43,7 +43,7 @@ from repro_torch.core.blocked_csr import (
     split_blocked_csr_from_network,
 )
 from repro_torch.core.network import NormalizedNetwork
-from repro_torch.core.solver import LPConfig, SolveResult, _halt, chunk_columns
+from repro_torch.core.solver import LPConfig, SolveResult, _any, _halt, chunk_columns
 from repro_torch.device import to_numpy_f64
 from repro_torch.engine import autotune
 from repro_torch.engine.base import LPEngine, Operator, register_backend
@@ -288,12 +288,6 @@ def _device_plan(bcsr, *, storage: str, device, weight_scale: float = 1.0):
         torch.as_tensor(order.astype(np.int64), device=device),
         torch.as_tensor(rank.astype(np.int64), device=device),
     )
-
-
-def _any(mask: torch.Tensor) -> bool:
-    """``bool(mask.any())``: the host waits here for the card's queue."""
-    with hot_span("lp.halt"):
-        return bool(mask.any())
 
 
 def _plan_round(buckets, F, base, *, c, use_kernel, storage, slots_per_block=None):

@@ -12,7 +12,9 @@ import torch
 
 import repro.core as rc
 import repro.scenarios as rs
+import repro_torch.api as tapi
 import repro_torch.core as tc
+import repro_torch.engine as te
 import repro_torch.obs as tobs
 import repro_torch.scenarios as ts
 from repro.core.blocked_csr import blocked_csr_from_network as jax_bcsr
@@ -278,3 +280,73 @@ def test_apply_delta_identical(bio):
     for k in want.R:
         _same(got.R[k], want.R[k])
     assert delta_g.touched_types() == delta_w.touched_types()
+
+
+def _dhlp2_iterates(A, Y, counts, beta2):
+    """Fixed-seed DHLP-2 in float64, column j stopped after ``counts[j]`` rounds."""
+    F = Y.copy()
+    for k in range(1, int(counts.max()) + 1):
+        on = counts >= k
+        F[:, on] = beta2 * Y[:, on] + A @ F[:, on]
+    return F
+
+
+def _dense_runs(net, backend):
+    """The solve of ``net`` in f32 and in bf16 storage, and the operator
+    arrays each engine holds."""
+    runs, arrays = {}, {}
+    for storage in ("f32", "bf16"):
+        cfg = tc.LPConfig(alg="dhlp2", sigma=1e-4, seed_mode="fixed", storage_dtype=storage)
+        eng = te.make_engine(backend, cfg, num_nodes=net.num_nodes, device="cpu")
+        runs[storage] = eng.run(net)
+        op = eng.prepare(net)
+        arrays[storage] = op.payload.operator_arrays(op.norm)
+    return runs, arrays
+
+
+def test_dense_bf16_storage_is_the_f32_solve_to_bf16_rounding():
+    """The dense engine honours ``storage_dtype``: its operator in bfloat16,
+    state and sums in f32.  It agrees with the f32 solve to bfloat16's
+    rounding, and stands off a float64 reference by more than f32's."""
+    net = ts.generate("powerlaw", scale=0.03, seed=0, cache=False).network
+    runs, arrays = _dense_runs(net, "dense")
+    assert arrays["f32"]["fused"][0].dtype == torch.float32
+    for A in (*arrays["bf16"]["split"], arrays["bf16"]["fused"][0]):
+        assert A.dtype == torch.bfloat16
+    assert runs["bf16"].F.dtype == np.float64
+    f32, bf16 = runs["f32"].F, runs["bf16"].F
+    gap = np.abs(bf16 - f32).max() / np.abs(f32).max()
+    assert 2.0**-16 < gap < 2.0**-8  # rounded, by less than one bfloat16 step
+
+    norm = net.normalize()
+    H, M = norm.assemble_dense()
+    H = H * tc.LPConfig().resolved_hetero_scale(norm.num_types)
+    A = 0.5 * 0.5 * H + 0.5 * M
+    Y = np.eye(norm.num_nodes)
+
+    def f_err(res):
+        ref = _dhlp2_iterates(A, Y, np.asarray(res.per_column_iters), 0.25)
+        return np.abs(res.F - ref).max() / np.abs(ref).max()
+
+    # f32 within a few f32 steps of the reference; bf16 past any of them,
+    # and within one bfloat16 step
+    assert f_err(runs["f32"]) < 2.0**-20 < 2.0**-16 < f_err(runs["bf16"]) < 2.0**-8
+
+
+def test_auto_with_bf16_storage_takes_the_dense_engine_in_bfloat16():
+    """``auto`` sends a network of at most ``AUTO_DENSE_MAX_NODES`` nodes to
+    the dense engine, which now reads ``storage_dtype``: a bf16 request there
+    gets the bfloat16 operator, and the f32 request the exact one."""
+    net = ts.generate("powerlaw", scale=0.03, seed=0, cache=False).network
+    assert net.num_nodes <= te.AUTO_DENSE_MAX_NODES
+    spec = tapi.SolveSpec(alg="dhlp2", sigma=1e-4, seed_mode="fixed", storage_dtype="bf16")
+    cfg = spec.to_lp_config()
+    assert cfg.backend is None and cfg.storage_dtype == "bf16"
+    eng = te.make_engine(None, cfg, num_nodes=net.num_nodes, device="cpu")
+    assert eng.name == "dense"
+    runs, arrays = _dense_runs(net, None)
+    assert arrays["bf16"]["fused"][0].dtype == torch.bfloat16
+    assert arrays["f32"]["fused"][0].dtype == torch.float32
+    want, _ = _dense_runs(net, "dense")
+    for storage in ("f32", "bf16"):
+        np.testing.assert_array_equal(runs[storage].F, want[storage].F)

@@ -101,6 +101,56 @@ def test_solve_and_ranking_record_their_ranges(alg, net):
             < first["lp.extract"] < first["lp.topk"])
 
 
+DENSE_SPANS = ("lp.seeds", "lp.upload", "lp.round", "lp.halt", "lp.download")
+
+
+def _dense(alg, **kw):
+    cfg = tc.LPConfig(alg=alg, sigma=1e-4, seed_mode="fixed", max_inner=50, **kw)
+    return te.make_engine("dense", cfg, device="cpu")
+
+
+@pytest.mark.parametrize("alg, fused", [("dhlp2", True), ("dhlp2", False), ("dhlp1", True)],
+                         ids=["dhlp2-fused", "dhlp2-split", "dhlp1"])
+def test_dense_solve_records_its_ranges(alg, fused, net):
+    eng = _dense(alg, fused=fused)
+    eng.prepare(net)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = eng.run(net)
+    got = _ranges(prof)
+    assert set(got) == set(DENSE_SPANS)
+    assert not any(ua for ivs in got.values() for _, _, ua in ivs)
+    assert len(got["lp.round"]) == res.outer_iters >= 2
+    for name in ("lp.seeds", "lp.upload", "lp.download"):
+        assert len(got[name]) == 1, name
+    rounds = got["lp.round"]
+    inside = sum(any(r0 <= s and e <= r1 for r0, r1, _ in rounds) for s, e, _ in got["lp.halt"])
+    outside = len(got["lp.halt"]) - inside
+    assert res.converged and outside == res.outer_iters + 1  # one a round, one to end
+    if alg == "dhlp2":
+        assert inside == 0
+    else:  # every inner round's check, and at most one ending each inner loop
+        assert res.inner_iters < inside <= res.inner_iters + res.outer_iters
+    first = {k: min(s for s, _, _ in v) for k, v in got.items()}
+    assert first["lp.seeds"] < first["lp.upload"] < first["lp.round"] < first["lp.download"]
+
+
+def test_dense_spans_are_the_shared_no_op_when_nothing_records(net, monkeypatch):
+    from repro_torch.core import solver
+
+    made = []
+
+    def recording(name):
+        span = tprof.hot_span(name)
+        made.append((name, span))
+        return span
+
+    monkeypatch.setattr(solver, "hot_span", recording)
+    res = _dense("dhlp1").run(net)
+    assert {name for name, _ in made} == set(DENSE_SPANS) - {"lp.seeds"}
+    assert sum(name == "lp.round" for name, _ in made) == res.outer_iters
+    assert all(span is _NULL_SPAN for _, span in made)
+
+
 def test_bio_plan_records_its_three_parts_inside_it():
     src, dst, w, Y = _bio_inputs()
     cfg = dhlp_bio.REDUCED
