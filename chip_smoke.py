@@ -2128,7 +2128,7 @@ def dhlp_bio_phase(torch, np, dev, shape: str, *, bf16: bool) -> dict:
         live_slots = sum(lv.slots for _, _, _, lv in buckets)
         slots = sum(int(nbr.numel()) for _, nbr, _, _ in buckets)
         _, gathered = gather_counts([(nbr, wgt, lv) for _, nbr, wgt, lv in buckets])
-        log(f"  plan (BlockedCSR.from_edges on the host, the legacy upload): {t_plan:.2f} s; "
+        log(f"  plan (built on the card from the edges there, bucket_plan): {t_plan:.2f} s; "
             f"{len(buckets)} buckets, {slots} slots, padding ratio {1 - live_slots / slots:.4f}; "
             f"{live_slots} live slots (nonzeros {nnz}); widest bucket {wi}: "
             f"{buckets[wi][1].shape[0]} x {widths[wi]}, its longest row "

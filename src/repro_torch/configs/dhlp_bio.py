@@ -10,12 +10,20 @@ a 500M-edge point beyond the paper.
 The step runs where its tensors are.  On CPU tensors it is the
 reference's loop over ``scatter_spmm`` (:func:`lp_step_plain`).  On CUDA
 tensors it builds the blocked-CSR width-bucket plan of the legacy loop
-once per call (:func:`lp_plan`) and runs each round as one ``csr_round``
-kernel launch per bucket with base Y and c = β² (:func:`lp_rounds`).
-The plan build runs inside a ``bio.plan`` span, its three parts inside
-``bio.plan.download`` (the edges to the host), ``bio.plan.bucket``
-(``BlockedCSR.from_edges``) and ``bio.plan.upload`` (the buckets to the
-card) (:func:`repro_torch.obs.profiler.hot_span`).
+once per call, on the card from the edges already there (:func:`lp_plan`),
+and runs each round as one ``csr_round`` kernel launch per bucket with
+base Y and c = β² (:func:`lp_rounds`).  The plan build runs inside a
+``bio.plan`` span, its three parts inside
+(:func:`repro_torch.obs.profiler.hot_span`):
+
+* ``bio.plan.download`` — the kept edges compacted, their stable sort by
+  ``dst``, the degrees and the block widths on the device, and the one
+  small copy of the widths, the blocks' live slots and the id bounds to
+  the host;
+* ``bio.plan.bucket`` — the blocks' (width, id) order, the slot scatter
+  of ``src`` and ``w``, the row order and ``inv_perm``;
+* ``bio.plan.upload`` — the per-bucket views and their ``LiveRows``
+  (nothing is uploaded any more; the name is the benchmark's).
 """
 
 from __future__ import annotations
@@ -28,9 +36,8 @@ import torch
 
 from repro_torch.configs.cells import Cell, sds
 from repro_torch.configs.registry import ArchSpec
-from repro_torch.core.blocked_csr import BlockedCSR
 from repro_torch.engine.autotune import DEFAULT_PARAMS
-from repro_torch.engine.sparse import _bucket_round, _device_buckets
+from repro_torch.engine.sparse import _bucket_round, bucket_plan
 from repro_torch.graph.segment import scatter_spmm
 from repro_torch.kernels.common import on_cpu
 from repro_torch.obs.profiler import hot_span
@@ -69,23 +76,16 @@ class LPPlan(NamedTuple):
 
 
 def lp_plan(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor, num_nodes: int) -> LPPlan:
-    """Bucket the COO operator for :func:`lp_rounds` on ``w``'s device:
-    ``BlockedCSR.from_edges`` on the host (the engines' default layout),
-    then the legacy plan's upload, the weights in ``w``'s dtype.
-    Zero-weight edges are dropped (they add nothing)."""
+    """Bucket the COO operator for :func:`lp_rounds` where ``w`` lives
+    (:func:`~repro_torch.engine.sparse.bucket_plan` at the engines' default
+    layout), the weights in ``w``'s dtype.  Zero-weight edges are dropped
+    (they add nothing).  Each call builds its plan from the tensors it is
+    given: nothing is kept across calls."""
     with hot_span("bio.plan"):
-        with hot_span("bio.plan.download"):
-            edges = src.cpu().numpy(), dst.cpu().numpy(), w.float().cpu().numpy()
-        with hot_span("bio.plan.bucket"):
-            bcsr = BlockedCSR.from_edges(
-                *edges, num_rows=num_nodes,
-                block_rows=DEFAULT_PARAMS.block_rows, width_mult=DEFAULT_PARAMS.width_mult,
-            )
-        with hot_span("bio.plan.upload"):
-            buckets, inv = _device_buckets(bcsr, w.device)
-            if w.dtype != torch.float32:
-                buckets = tuple((r, nbr, wgt.to(w.dtype), live) for r, nbr, wgt, live in buckets)
-        return LPPlan(buckets, inv)
+        return LPPlan(*bucket_plan(
+            src, dst, w, num_nodes,
+            block_rows=DEFAULT_PARAMS.block_rows, width_mult=DEFAULT_PARAMS.width_mult,
+        ))
 
 
 def lp_rounds(plan: LPPlan, Y: torch.Tensor, F: torch.Tensor, cfg: DHLPBioConfig) -> torch.Tensor:

@@ -29,6 +29,12 @@ round (per inner round for DHLP-1's inner loop).  The fused loops and
 ``lp.round`` per outer round, ``lp.halt`` around each of those syncs,
 ``lp.upload`` / ``lp.download`` around a seed chunk's trips to and from
 the card.
+
+The legacy plan has two builders that share no logic, only the layout:
+the engines build theirs once from a host network (``BlockedCSR``, then
+``_device_buckets``); :func:`bucket_plan` builds the same buckets with
+torch ops from a COO operator already on the device, on every
+``dhlp-bio`` step.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from repro_torch.device import to_numpy_f64
 from repro_torch.engine import autotune
 from repro_torch.engine.base import LPEngine, Operator, register_backend
 from repro_torch.kernels.segment_reduce import (
+    LiveRows,
     csr_aggregate_ref,
     csr_round_op,
     csr_round_ref,
@@ -55,6 +62,7 @@ from repro_torch.kernels.segment_reduce import (
     live_rows,
 )
 from repro_torch.kernels.segment_reduce.ref import _aggregate_f32
+from repro_torch.obs import profiler
 from repro_torch.obs.profiler import hot_span
 
 _STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -90,6 +98,102 @@ def _device_buckets(bcsr, device):
     order = np.concatenate([b.rows for b in buckets])
     inv = np.argsort(order).astype(np.int64)
     return dev, torch.as_tensor(inv, device=device)
+
+
+def bucket_plan(src, dst, w, num_rows: int, *, block_rows: int, width_mult: int):
+    """The legacy width-bucket plan of a COO operator ``W[dst, src] = w``,
+    built with torch ops where ``w`` lives: ``(buckets, inv_perm)`` as
+    ``_device_buckets(BlockedCSR.from_edges(...))`` gives them, bit for
+    bit, except that ``wgt`` is in ``w``'s dtype (each weight rounded
+    through float32, as the host builder stores it).
+
+    Zero-weight edges are dropped; the rest are laid out by a stable sort
+    of ``dst``, each block of ``block_rows`` rows as wide as its longest
+    row rounded up to ``width_mult``, the blocks in (width, id) order so
+    that each bucket is one slice of the slot storage.  Every kept weight
+    is nonzero, so a row's live length is its degree.  The edges stay on
+    the device; the host waits twice (the kept count, then one copy of the
+    block widths, the blocks' live slots and the id bounds) and uploads
+    nothing.  Ids outside ``[0, num_rows)`` raise ``ValueError``: the
+    kernel gathers unchecked.
+
+    Its three parts run inside the ``bio.plan.download``, ``.bucket`` and
+    ``.upload`` spans (``configs/dhlp_bio.py`` says what each covers); with
+    a collector installed a build counts ``bio.plan.builds`` and
+    ``bio.plan.slots`` (its padded slots).
+    """
+    n, br, wm = int(num_rows), int(block_rows), int(width_mult)
+    if br < 1 or wm < 1:
+        raise ValueError("block_rows and width_mult must be >= 1")
+    dev = w.device
+    nb = max(1, -(-n // br))
+    with hot_span("bio.plan.download"):
+        wf = w.float()
+        kept = torch.nonzero(wf != 0).squeeze(1)  # the first wait: the kept count
+        src_k, dst_k = src[kept], dst[kept]
+        dst_s, order = torch.sort(dst_k, stable=True)
+        starts = torch.searchsorted(dst_s, torch.arange(n + 1, dtype=dst_s.dtype, device=dev))
+        deg = starts.diff()
+        block_max = torch.zeros(nb * br, dtype=torch.int64, device=dev)
+        block_max[:n] = deg
+        block_max = block_max.view(nb, br).amax(dim=1)
+        widths = ((block_max + wm - 1) // wm * wm).clamp_(min=wm)
+        live = starts[(torch.arange(nb + 1, device=dev) * br).clamp_(max=n)].diff()
+        if dst_s.numel():
+            bounds = torch.stack([src_k.min(), src_k.max(), dst_s[0], dst_s[-1]]).long()
+        else:
+            bounds = torch.zeros(4, dtype=torch.int64, device=dev)
+        host = torch.cat([widths, live, bounds]).cpu().numpy()  # the second wait
+        widths_h, live_h, (s_lo, s_hi, d_lo, d_hi) = host[:nb], host[nb : 2 * nb], host[2 * nb :]
+        if dst_s.numel() and (min(s_lo, d_lo) < 0 or max(s_hi, d_hi) >= n):
+            raise ValueError("blocked-CSR neighbor id out of range")
+
+    with hot_span("bio.plan.bucket"):
+        rows_h = np.clip(n - np.arange(nb) * br, 0, br)
+        slots_h = int((rows_h * widths_h).sum())
+        # each block's first row and first slot in the (width, id) order
+        rows_in = (n - torch.arange(nb, device=dev) * br).clamp_(0, br)
+        first_row, first_slot = torch.empty_like(widths), torch.empty_like(widths)
+        by_width_d = torch.sort(widths, stable=True).indices
+        for first, size in ((first_row, rows_in), (first_slot, rows_in * widths)):
+            ordered = size[by_width_d]
+            first[by_width_d] = ordered.cumsum(0) - ordered
+        d = dst_s.long()
+        blk = d // br
+        rank = torch.arange(d.shape[0], device=dev) - starts[d]
+        slot = first_slot[blk] + (d - blk * br) * widths[blk] + rank
+        nbr_all = torch.zeros(slots_h, dtype=torch.int32, device=dev)
+        wgt_all = torch.zeros(slots_h, dtype=w.dtype, device=dev)
+        nbr_all[slot] = src_k[order].int()
+        wgt_all[slot] = wf[kept[order]].to(w.dtype)
+        r = torch.arange(n, device=dev)
+        inv_perm = first_row[r // br] + r % br
+        rows_all = torch.empty_like(inv_perm)
+        rows_all[inv_perm] = r
+        lengths_all = torch.empty(n, dtype=torch.int32, device=dev)
+        lengths_all[inv_perm] = deg.int()
+
+    with hot_span("bio.plan.upload"):
+        buckets = []
+        row0 = slot0 = 0
+        for wd in np.unique(widths_h):
+            blocks = widths_h == wd
+            m = int(rows_h[blocks].sum())
+            if m == 0:
+                continue
+            wd = int(wd)
+            buckets.append((
+                rows_all[row0 : row0 + m],
+                nbr_all[slot0 : slot0 + m * wd].view(m, wd),
+                wgt_all[slot0 : slot0 + m * wd].view(m, wd),
+                LiveRows(lengths_all[row0 : row0 + m], int(live_h[blocks].sum())),
+            ))
+            row0, slot0 = row0 + m, slot0 + m * wd
+    tel = profiler._COLLECTOR
+    if tel is not None:
+        tel.count("bio.plan.builds")
+        tel.count("bio.plan.slots", slots_h)
+    return tuple(buckets), inv_perm
 
 
 def _bucket_agg(buckets, inv_perm, F):

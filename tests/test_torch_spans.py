@@ -152,6 +152,9 @@ def test_dense_spans_are_the_shared_no_op_when_nothing_records(net, monkeypatch)
 
 
 def test_bio_plan_records_its_three_parts_inside_it():
+    # the parts of the plan built where the edges are: compaction, sort,
+    # degrees, widths and the one small copy to the host; the block order,
+    # the slot scatter, the rows and inv_perm; the per-bucket views
     src, dst, w, Y = _bio_inputs()
     cfg = dhlp_bio.REDUCED
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -180,6 +183,7 @@ def test_spans_land_in_an_installed_telemetry_with_parents(level, recorded, net)
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             with tel.span("phase", "solve") as phase:
                 res, tops = _solve_and_rank(eng, net)
+                # bio.plan and its three parts (download, bucket, upload), in order
                 dhlp_bio.lp_plan(src, dst, w, Y.shape[0])
     finally:
         tprof.uninstall_kernel_hook()
@@ -231,3 +235,25 @@ def test_topk_counts_the_path_it_takes_under_a_collector():
         tprof.uninstall_kernel_hook()
     tc.topk_exclusive(nan_row, 20, known)
     assert counts() == {"select": 1, "full_sort": 1}
+
+
+def test_lp_plan_counts_its_build_and_slots_under_a_collector():
+    src, dst, w, Y = _bio_inputs()
+    tel = to.Telemetry("metrics", run_id="plan")
+    dhlp_bio.lp_plan(src, dst, w, Y.shape[0])  # no collector: nothing recorded
+    assert tel.metrics.to_lines() == []
+
+    def counts():
+        return {p: getattr(tel.metrics.peek(f"bio.plan.{p}"), "value", 0)
+                for p in ("builds", "slots")}
+
+    tprof.install_kernel_hook(tel)
+    try:
+        plan = dhlp_bio.lp_plan(src, dst, w, Y.shape[0])
+    finally:
+        tprof.uninstall_kernel_hook()
+    slots = sum(nbr.numel() for _, nbr, _, _ in plan.buckets)
+    assert slots > int(torch.count_nonzero(w))  # padded slots, not the live ones
+    assert counts() == {"builds": 1, "slots": slots}
+    dhlp_bio.lp_plan(src, dst, w, Y.shape[0])
+    assert counts() == {"builds": 1, "slots": slots}

@@ -14,13 +14,18 @@ plain versions are held to the JAX reference by the CPU tests
 """
 
 import copy
+import json
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import dhlp_bio, dimenet, gat_cora, meshgraphnet
+from repro_torch.core.blocked_csr import BlockedCSR
 from repro_torch.data.graphs import mesh_rollout_batch, molecule_batch
+from repro_torch.engine.autotune import DEFAULT_PARAMS
+from repro_torch.engine.sparse import _device_buckets
 from repro_torch.graph.sampler import CSRAdjacency, NeighborSampler, relabel_to_local
 from repro_torch.graph.segment import gcn_norm
 from repro_torch.graph.structures import erdos_renyi, powerlaw_graph
@@ -87,6 +92,60 @@ def test_lp_plan_buckets_match_plain(dev):
     for rows, nbr, wgt, live in plan.buckets:
         got = csr_round_op(nbr, wgt, F, Y[rows], c=0.25, live=live)
         _close(got, csr_round_ref(nbr, wgt, F, Y[rows], 0.25), F32_TOL)
+
+
+def _host_plan(src, dst, w, n, device):
+    """The plan as the step built it on the host before: ``from_edges``,
+    then the legacy upload."""
+    bcsr = BlockedCSR.from_edges(*(t.cpu().numpy() for t in (src, dst, w.float())), num_rows=n,
+                                 block_rows=DEFAULT_PARAMS.block_rows,
+                                 width_mult=DEFAULT_PARAMS.width_mult)
+    return dhlp_bio.LPPlan(*_device_buckets(bcsr, device))
+
+
+@pytest.fixture(scope="module")
+def scale_1m():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    sh = dhlp_bio.LP_SHAPES["scale_1m"]
+    return _lp_inputs(sh["num_nodes"], sh["num_edges"], 256, torch.device("cuda:0"))
+
+
+def test_lp_plan_on_the_card_is_the_host_plan_at_scale_1m(dev, scale_1m):
+    src, dst, w, Y, _ = scale_1m
+    n = Y.shape[0]
+    got = dhlp_bio.lp_plan(src, dst, w, n)
+    want = _host_plan(src, dst, w, n, "cpu")
+    assert len(got.buckets) == len(want.buckets)
+    for g, h in zip(got.buckets, want.buckets):
+        for a, b in zip(g[:3] + (g[3].lengths,), h[:3] + (h[3].lengths,)):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        assert g[3].slots == h[3].slots
+    assert torch.equal(got.inv_perm.cpu(), want.inv_perm)
+
+
+def test_lp_step_is_the_host_plan_route_bit_for_bit(dev, scale_1m):
+    src, dst, w, Y, F0 = scale_1m
+    got = dhlp_bio.make_lp_step(dhlp_bio.FULL)(src, dst, w, Y, F0)
+    old = dhlp_bio.lp_rounds(_host_plan(src, dst, w, Y.shape[0], dev), Y, F0, dhlp_bio.FULL)
+    assert torch.equal(got, old)
+
+
+def test_lp_plan_uploads_nothing_and_downloads_little(dev, scale_1m, tmp_path):
+    src, dst, w, Y, _ = scale_1m
+    dhlp_bio.lp_plan(src, dst, w, Y.shape[0])  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dhlp_bio.lp_plan(src, dst, w, Y.shape[0])
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    assert any(e.get("cat") == "kernel" for e in events)  # the card was traced
+    assert not [e["name"] for e in copies if "HtoD" in e["name"]]
+    down = sum(int(e.get("args", {}).get("bytes", 0)) for e in copies if "DtoH" in e["name"])
+    assert 0 < down <= 64 * 1024
 
 
 def _sampled(dev, seed=0):
