@@ -439,6 +439,28 @@ def seeds_identity(num_nodes: int) -> np.ndarray:
     return np.eye(num_nodes, dtype=np.float64)
 
 
+def seed_matrix(num_nodes: int, seeds=None, F0=None, *, dtype=None):
+    """The seed columns ``Y`` and warm start ``F0`` every solve entry takes.
+
+    ``seeds=None`` is all sources (:func:`seeds_identity`); a 1-D ``seeds``
+    or ``F0`` is one column.  ``dtype`` casts both (``None`` keeps theirs).
+    Raises ``ValueError`` unless ``Y`` has ``num_nodes`` rows and ``F0``
+    (when given) is ``Y``'s shape.
+    """
+    Y = seeds_identity(num_nodes) if seeds is None else np.asarray(seeds, dtype=dtype)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    if Y.shape[0] != num_nodes:
+        raise ValueError(f"seeds must have {num_nodes} rows, got {Y.shape}")
+    if F0 is not None:
+        F0 = np.asarray(F0, dtype=dtype)
+        if F0.ndim == 1:
+            F0 = F0[:, None]
+        if F0.shape != Y.shape:
+            raise ValueError(f"F0 shape {F0.shape} must match seeds shape {Y.shape}")
+    return Y, F0
+
+
 def seeds_for_nodes(num_nodes: int, nodes: Sequence[int]) -> np.ndarray:
     y = np.zeros((num_nodes, len(nodes)), dtype=np.float64)
     for c, v in enumerate(nodes):

@@ -9,18 +9,20 @@ The paper's Giraph programs are re-expressed as tensor iterations
   ``mode="sequential"``)
 * ``voteToHalt`` == per-column convergence mask (converged columns freeze)
 
-Each loop is a host loop over device tensors; it pays one
-``bool(active.any())`` synchronisation per round to decide whether to go
-on (the counterpart of the reference's ``lax.while_loop`` condition).
-The loops and ``HeteroLP._run_batched`` open the sparse engine's
-:func:`~repro_torch.obs.profiler.hot_span` ranges: one ``lp.round`` per
-outer round, ``lp.halt`` around each of those syncs (DHLP-1's inner ones
-too), ``lp.upload`` / ``lp.download`` around a seed chunk's trips to and
-from the card.
+Every single-card engine's σ-halting loop is :func:`_converge`, a host
+loop over device tensors that takes a round and owns the rest: the sync
+that decides whether to go on (the counterpart of the reference's
+``lax.while_loop`` condition), the freeze, the residual, momentum, the
+per-column counts and the :func:`~repro_torch.obs.profiler.hot_span`
+ranges ``lp.round`` and ``lp.halt``; :func:`_dhlp1_converge` nests it
+for DHLP-1.  :func:`solve_chunks` runs their seed chunks, with the
+``lp.upload`` / ``lp.download`` ranges around a chunk's trips to and from
+the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Literal, Optional, Tuple
@@ -31,7 +33,7 @@ import torch
 from repro_torch.core.network import (
     HeteroNetwork,
     NormalizedNetwork,
-    seeds_identity,
+    seed_matrix,
 )
 from repro_torch.device import DeviceLike, resolve_device, to_numpy_f64
 from repro_torch.kernels.lp_blockspmm import lp_round_op
@@ -74,9 +76,9 @@ class LPConfig:
     # gather panel (dense: the F operand of each product) in bfloat16 while
     # state and accumulation stay f32.  "f32" is exact.
     storage_dtype: Literal["f32", "bf16"] = "f32"
-    # Consult the autotune cache for the blocked-CSR layout.  This package
-    # has no GPU-keyed cache yet, so both values resolve to the defaults
-    # (what the reference does with a cold cache).
+    # Consult the device-keyed autotune cache (repro_torch.engine.autotune)
+    # for the blocked-CSR layout and the round kernels' block sizing; False,
+    # or a cold cache, resolves to the defaults.
     autotune: bool = True
 
     def __post_init__(self) -> None:
@@ -141,11 +143,67 @@ def _any(mask: torch.Tensor) -> bool:
         return bool(mask.any())
 
 
-def _halt(F, Fn, active, sigma):
-    """voteToHalt: freeze converged columns, return ``(Fn, still_active)``."""
-    Fn = torch.where(active[None, :], Fn, F)
-    delta = (Fn - F).abs().amax(dim=0)
-    return Fn, active & ~(delta < sigma)
+def _converge(step, F, active=None, *, sigma, max_iter, momentum=0.0, inner=False):
+    """voteToHalt, the one σ-halting loop of the single-card engines.
+
+    ``step(F, active)`` is one round: ``(Fn, delta)``, ``delta`` the
+    per-column residual ``max_r |Fn − F|`` if the round has it, else
+    ``None``.  The loop adds heavy-ball ``momentum·(F − F_prev)`` (dropping
+    the round's residual), counts a round for each active column, freezes
+    the converged ones and takes the residual after the freeze when it has
+    none (the mask is the same either way: a frozen column's residual is
+    never read).  Each round pays one ``bool(active.any())`` sync in
+    ``lp.halt`` and runs in ``lp.round``.  ``active`` defaults to every
+    column; ``inner=True`` (DHLP-1's inner solve) opens no ``lp.round`` and
+    counts nothing.  Returns ``(F, rounds, col_iters or None)``.
+    """
+    s = F.shape[1]
+    if active is None:
+        active = torch.ones(s, dtype=torch.bool, device=F.device)
+    col_iters = None if inner else torch.zeros(s, dtype=torch.int32, device=F.device)
+    F_prev = F
+    it = 0
+    while it < max_iter and _any(active):
+        with contextlib.nullcontext() if inner else hot_span("lp.round"):
+            Fn, delta = step(F, active)
+            if momentum:
+                Fn, delta = Fn + momentum * (F - F_prev), None
+            if not inner:
+                col_iters += active.int()
+            Fn = torch.where(active[None, :], Fn, F)
+            if delta is None:
+                delta = (Fn - F).abs().amax(dim=0)
+            active = active & ~(delta < sigma)
+            F_prev, F = F, Fn
+            it += 1
+    return F, it, col_iters
+
+
+def _dhlp1_converge(inject, inner_round, F, *, sigma, max_iter, max_inner):
+    """DHLP-1's two-level loop: ``(F, outer, inner, cols)``.
+
+    An outer round injects ``Yp = inject(F)``, then iterates ``Fi ←
+    inner_round(Yp, Fi)`` (a ``step``'s ``(Fn, delta)``) to σ on its active
+    columns.
+    """
+    inner_rounds = 0
+
+    def outer(F, active):
+        nonlocal inner_rounds
+        Yp = inject(F)
+        Fi, n, _ = _converge(
+            lambda Fi, _: inner_round(Yp, Fi),
+            F,
+            active,
+            sigma=sigma,
+            max_iter=max_inner,
+            inner=True,
+        )
+        inner_rounds += n
+        return Fi, None
+
+    F, it, col_iters = _converge(outer, F, sigma=sigma, max_iter=max_iter)
+    return F, it, inner_rounds, col_iters
 
 
 # --------------------------------------------------------------------------
@@ -167,22 +225,15 @@ def _dhlp2_step_loop(
     ``F0`` is the warm-start state (pass ``Y`` for a cold solve).
     """
     beta = 1.0 - alpha
-    s = Y.shape[1]
-    F = F0
-    active = torch.ones(s, dtype=torch.bool, device=Y.device)
-    col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
-    it = 0
-    while it < max_iter and _any(active):
-        with hot_span("lp.round"):
-            src = Y if seed_mode == "fixed" else F
-            # superstep A: heterogeneous injection  y' = βy + αHF
-            Yp = beta * src + alpha * _mm(H, F)
-            # superstep B: homogeneous propagation  f = βy' + αMF
-            Fn = beta * Yp + alpha * _mm(M, F)
-            col_iters += active.int()
-            F, active = _halt(F, Fn, active, sigma)
-            it += 1
-    return F, it, col_iters
+
+    def step(F, _):
+        src = Y if seed_mode == "fixed" else F
+        # superstep A: heterogeneous injection  y' = βy + αHF
+        Yp = beta * src + alpha * _mm(H, F)
+        # superstep B: homogeneous propagation  f = βy' + αMF
+        return beta * Yp + alpha * _mm(M, F), None
+
+    return _converge(step, F0, sigma=sigma, max_iter=max_iter)
 
 
 def _dhlp2_fused_loop(
@@ -205,25 +256,14 @@ def _dhlp2_fused_loop(
     ``use_kernel`` routes the round through ``lp_round_op`` with ``c=1``
     and ``β²·base`` folded in, as the reference does.
     """
-    s = Y.shape[1]
-    F = F_prev = F0
-    active = torch.ones(s, dtype=torch.bool, device=Y.device)
-    col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
-    it = 0
-    while it < max_iter and _any(active):
-        with hot_span("lp.round"):
-            base = Y if seed_mode == "fixed" else F
-            if use_kernel:
-                Fn = lp_round_op(A_eff, F, beta2 * base, c=1.0)
-            else:
-                Fn = beta2 * base + _mm(A_eff, F)
-            if momentum:
-                Fn = Fn + momentum * (F - F_prev)
-            F_prev = F
-            col_iters += active.int()
-            F, active = _halt(F, Fn, active, sigma)
-            it += 1
-    return F, it, col_iters
+
+    def step(F, _):
+        base = Y if seed_mode == "fixed" else F
+        if use_kernel:
+            return lp_round_op(A_eff, F, beta2 * base, c=1.0), None
+        return beta2 * base + _mm(A_eff, F), None
+
+    return _converge(step, F0, sigma=sigma, max_iter=max_iter, momentum=momentum)
 
 
 # --------------------------------------------------------------------------
@@ -249,31 +289,14 @@ def _dhlp1_loop(
     loop.
     """
     beta = 1.0 - alpha
-    s = Y.shape[1]
-
-    def inner(Yp, Fi, iact):
-        """Solve F = βY' + αMF to tolerance σ on active columns."""
-        it = 0
-        while it < max_inner and _any(iact):
-            Fn = beta * Yp + alpha * _mm(M, Fi)
-            Fi, iact = _halt(Fi, Fn, iact, sigma)
-            it += 1
-        return Fi, it
-
-    F = F0
-    active = torch.ones(s, dtype=torch.bool, device=Y.device)
-    col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
-    it, tot_inner = 0, 0
-    while it < max_iter and _any(active):
-        with hot_span("lp.round"):
-            src = Y if seed_mode == "fixed" else F
-            Yp = beta * src + alpha * _mm(H, F)
-            Fn, inner_it = inner(Yp, F, active)
-            col_iters += active.int()
-            F, active = _halt(F, Fn, active, sigma)
-            it += 1
-            tot_inner += inner_it
-    return F, it, tot_inner, col_iters
+    return _dhlp1_converge(
+        lambda F: beta * (Y if seed_mode == "fixed" else F) + alpha * _mm(H, F),
+        lambda Yp, Fi: (beta * Yp + alpha * _mm(M, Fi), None),
+        F0,
+        sigma=sigma,
+        max_iter=max_iter,
+        max_inner=max_inner,
+    )
 
 
 def _solve_columns(cfg: LPConfig, arrays, Yd, F0d, *, fused: bool):
@@ -348,20 +371,7 @@ class HeteroLP:
         """
         cfg = self.config
         norm = coerce_normalized(net)
-        n = norm.num_nodes
-        Y = seeds_identity(n) if seeds is None else np.asarray(seeds)
-        if Y.ndim == 1:
-            Y = Y[:, None]
-        if Y.shape[0] != n:
-            raise ValueError(f"seeds must have {n} rows, got {Y.shape}")
-        if F0 is not None:
-            F0 = np.asarray(F0)
-            if F0.ndim == 1:
-                F0 = F0[:, None]
-            if F0.shape != Y.shape:
-                raise ValueError(
-                    f"F0 shape {F0.shape} must match seeds shape {Y.shape}"
-                )
+        Y, F0 = seed_matrix(norm.num_nodes, seeds, F0)
 
         if cfg.mode == "sequential":
             return self._run_sequential(norm, Y, F0)
@@ -380,28 +390,14 @@ class HeteroLP:
         F0: Optional[np.ndarray] = None,
     ) -> SolveResult:
         cfg = self.config
-        chunks = chunk_columns(Y, cfg.seed_chunk)
-        f0_chunks = (
-            [None] * len(chunks) if F0 is None else chunk_columns(F0, cfg.seed_chunk)
-        )
-        F_parts, outer, inner, col_iters = [], 0, 0, []
         arrays = self.operator_arrays(norm)
-        for Yc, F0c in zip(chunks, f0_chunks):
-            with hot_span("lp.upload"):
-                Yd = self._tensor(Yc)
-                F0d = Yd if F0c is None else self._tensor(F0c)
-            F, it, ii, ci = _solve_columns(cfg, arrays, Yd, F0d, fused=cfg.fused)
-            with hot_span("lp.download"):
-                F_parts.append(to_numpy_f64(F))
-                col_iters.append(ci.cpu().numpy())
-            outer = max(outer, int(it))
-            inner += int(ii)
-        return SolveResult(
-            F=F_parts[0] if len(F_parts) == 1 else np.concatenate(F_parts, axis=1),
-            outer_iters=outer,
-            inner_iters=inner,
-            converged=bool(outer < cfg.max_iter),
-            per_column_iters=np.concatenate(col_iters),
+        return solve_chunks(
+            Y,
+            F0,
+            chunk=cfg.seed_chunk,
+            max_iter=cfg.max_iter,
+            upload=self._tensor,
+            solve=lambda Yd, F0d: _solve_columns(cfg, arrays, Yd, F0d, fused=cfg.fused),
         )
 
     # -- sequential (paper-faithful per-seed sweep) --------------------------
@@ -467,6 +463,37 @@ def chunk_columns(Y: np.ndarray, chunk: int):
     if chunk <= 0 or chunk >= Y.shape[1]:
         return [Y]
     return [Y[:, i : i + chunk] for i in range(0, Y.shape[1], chunk)]
+
+
+def solve_chunks(Y, F0, *, chunk: int, max_iter: int, upload, solve) -> SolveResult:
+    """Solve seed columns ``Y`` from ``F0`` (``None``: from ``Y``) in chunks.
+
+    The seed-chunk loop of the single-card engines: each
+    :func:`chunk_columns` slice goes to the device through ``upload``
+    (inside ``lp.upload``), is solved by ``solve(Yd, F0d) -> (F, outer,
+    inner, col_iters)`` and comes back in float64 (inside
+    ``lp.download``).  ``converged`` is ``outer < max_iter``.
+    """
+    chunks = chunk_columns(Y, chunk)
+    f0_chunks = [None] * len(chunks) if F0 is None else chunk_columns(F0, chunk)
+    F_parts, outer, inner, col_iters = [], 0, 0, []
+    for Yc, F0c in zip(chunks, f0_chunks):
+        with hot_span("lp.upload"):
+            Yd = upload(Yc)
+            F0d = Yd if F0c is None else upload(F0c)
+        F, it, ii, ci = solve(Yd, F0d)
+        with hot_span("lp.download"):
+            F_parts.append(to_numpy_f64(F))
+            col_iters.append(ci.cpu().numpy())
+        outer = max(outer, int(it))
+        inner += int(ii)
+    return SolveResult(
+        F=F_parts[0] if len(F_parts) == 1 else np.concatenate(F_parts, axis=1),
+        outer_iters=outer,
+        inner_iters=inner,
+        converged=bool(outer < max_iter),
+        per_column_iters=np.concatenate(col_iters),
+    )
 
 
 def coerce_normalized(net) -> NormalizedNetwork:

@@ -25,7 +25,7 @@ from typing import Any, ClassVar, Dict, Optional, Tuple, Type
 
 import numpy as np
 
-from repro_torch.core.network import NormalizedNetwork, seeds_identity
+from repro_torch.core.network import NormalizedNetwork, seed_matrix
 from repro_torch.core.solver import LPConfig, SolveResult, coerce_normalized
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.profiler import hot_span
@@ -145,21 +145,8 @@ class LPEngine(abc.ABC):
     ) -> SolveResult:
         """``prepare`` + ``solve`` with the shared seed/F0 validation."""
         op = self.prepare(net)
-        n = op.num_nodes
         with hot_span("lp.seeds"):
-            Y = seeds_identity(n) if seeds is None else np.asarray(seeds)
-        if Y.ndim == 1:
-            Y = Y[:, None]
-        if Y.shape[0] != n:
-            raise ValueError(f"seeds must have {n} rows, got {Y.shape}")
-        if F0 is not None:
-            F0 = np.asarray(F0)
-            if F0.ndim == 1:
-                F0 = F0[:, None]
-            if F0.shape != Y.shape:
-                raise ValueError(
-                    f"F0 shape {F0.shape} must match seeds shape {Y.shape}"
-                )
+            Y, F0 = seed_matrix(op.num_nodes, seeds, F0)
         return self.solve(op, Y, F0=F0)
 
 

@@ -23,12 +23,11 @@ autotune cache (:mod:`repro_torch.engine.autotune`, consulted only with
 the per-round gather panel in bfloat16 with f32 state and accumulation;
 the legacy loops ignore it and run in f32, as the reference's do.
 
-Every loop is a host loop that pays one ``bool(active.any())`` sync per
-round (per inner round for DHLP-1's inner loop).  The fused loops and
-``solve`` open :func:`~repro_torch.obs.profiler.hot_span` ranges: one
-``lp.round`` per outer round, ``lp.halt`` around each of those syncs,
-``lp.upload`` / ``lp.download`` around a seed chunk's trips to and from
-the card.
+Every loop, fused and legacy, is a round handed to
+:func:`~repro_torch.core.solver._converge` (DHLP-1's through
+:func:`~repro_torch.core.solver._dhlp1_converge`), which owns the halt,
+its sync and the ``lp.round`` / ``lp.halt`` ranges; ``solve`` hands its
+seed chunks to :func:`~repro_torch.core.solver.solve_chunks`.
 
 The legacy plan has two builders that share no logic, only the layout:
 the engines build theirs once from a host network (``BlockedCSR``, then
@@ -39,7 +38,7 @@ torch ops from a COO operator already on the device, on every
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,8 +47,14 @@ from repro_torch.core.blocked_csr import (
     blocked_csr_from_network,
     split_blocked_csr_from_network,
 )
-from repro_torch.core.network import NormalizedNetwork
-from repro_torch.core.solver import LPConfig, SolveResult, _any, _halt, chunk_columns
+from repro_torch.core.network import NormalizedNetwork, seed_matrix
+from repro_torch.core.solver import (
+    LPConfig,
+    SolveResult,
+    _converge,
+    _dhlp1_converge,
+    solve_chunks,
+)
 from repro_torch.device import to_numpy_f64
 from repro_torch.engine import autotune
 from repro_torch.engine.base import LPEngine, Operator, register_backend
@@ -242,12 +247,8 @@ def _dhlp2_csr_loop(
     slots_per_block=None,
 ):
     """Pre-fusion DHLP-2 on blocked-CSR buckets (bench A/B baseline)."""
-    F = F_prev = F0
-    s = Y.shape[1]
-    active = torch.ones(s, dtype=torch.bool, device=Y.device)
-    col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
-    it = 0
-    while it < max_iter and bool(active.any()):
+
+    def step(F, _):
         base = Y if seed_mode == "fixed" else F
         if use_kernel:
             Fn = _bucket_round(
@@ -255,13 +256,9 @@ def _dhlp2_csr_loop(
             )
         else:
             Fn = beta2 * base + _bucket_agg(buckets, inv_perm, F)
-        if momentum:
-            Fn = Fn + momentum * (F - F_prev)
-        col_iters += active.int()
-        Fn, active = _halt(F, Fn, active, sigma)
-        F_prev, F = F, Fn
-        it += 1
-    return F, it, col_iters
+        return Fn, None
+
+    return _converge(step, F0, sigma=sigma, max_iter=max_iter, momentum=momentum)
 
 
 def _dhlp1_csr_loop(
@@ -280,25 +277,18 @@ def _dhlp1_csr_loop(
 ):
     """Pre-fusion DHLP-1 on blocked-CSR (bench A/B baseline)."""
     beta = 1.0 - alpha
-    F = F0
-    s = Y.shape[1]
-    active = torch.ones(s, dtype=torch.bool, device=Y.device)
-    col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
-    it = tot_inner = 0
-    while it < max_iter and bool(active.any()):
-        src = Y if seed_mode == "fixed" else F
-        Yp = beta * src + alpha * _bucket_agg(het_buckets, het_inv, F)
-        Fi, iact = F, active
-        inner_it = 0
-        while inner_it < max_inner and bool(iact.any()):
-            Fn = beta * Yp + alpha * _bucket_agg(hom_buckets, hom_inv, Fi)
-            Fi, iact = _halt(Fi, Fn, iact, sigma)
-            inner_it += 1
-        col_iters += active.int()
-        F, active = _halt(F, Fi, active, sigma)
-        it += 1
-        tot_inner += inner_it
-    return F, it, tot_inner, col_iters
+    return _dhlp1_converge(
+        lambda F: beta * (Y if seed_mode == "fixed" else F)
+        + alpha * _bucket_agg(het_buckets, het_inv, F),
+        lambda Yp, Fi: (
+            beta * Yp + alpha * _bucket_agg(hom_buckets, hom_inv, Fi),
+            None,
+        ),
+        F0,
+        sigma=sigma,
+        max_iter=max_iter,
+        max_inner=max_inner,
+    )
 
 
 # --------------------------------------------------------------------------
@@ -452,36 +442,26 @@ def _dhlp2_plan_loop(
 ):
     """Fused-superstep DHLP-2: state stays in permuted space end to end.
 
-    A host loop; each round pays one ``bool(active.any())`` sync.
+    The round returns its residual; with momentum :func:`_converge`
+    recomputes it, still gather-free in permuted space.
     """
     Yp = Y[perm]
-    F = F_prev = F0[perm]
-    s = Yp.shape[1]
-    active = torch.ones(s, dtype=torch.bool, device=Y.device)
-    col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
-    it = 0
-    while it < max_iter and _any(active):
-        with hot_span("lp.round"):
-            base = Yp if seed_mode == "fixed" else F
-            Fn, delta = _plan_round(
-                buckets,
-                F,
-                base,
-                c=beta2,
-                use_kernel=use_kernel,
-                storage=storage,
-                slots_per_block=slots_per_block,
-            )
-            if momentum:
-                # the kernel residual is pre-momentum; fold the heavy-ball
-                # term in and recompute — still gather-free in permuted space
-                Fn = Fn + momentum * (F - F_prev)
-                delta = (Fn - F).abs().amax(dim=0)
-            Fn = torch.where(active[None, :], Fn, F)
-            col_iters += active.int()
-            active = active & ~(delta < sigma)
-            F_prev, F = F, Fn
-            it += 1
+
+    def step(F, _):
+        base = Yp if seed_mode == "fixed" else F
+        return _plan_round(
+            buckets,
+            F,
+            base,
+            c=beta2,
+            use_kernel=use_kernel,
+            storage=storage,
+            slots_per_block=slots_per_block,
+        )
+
+    F, it, col_iters = _converge(
+        step, F0[perm], sigma=sigma, max_iter=max_iter, momentum=momentum
+    )
     return F[rank], it, col_iters
 
 
@@ -532,31 +512,20 @@ def _dhlp1_plan_loop(
     """
     beta = 1.0 - alpha
     Y = Y[hom_perm]
-    F = F0[hom_perm]
-    s = Y.shape[1]
-    active = torch.ones(s, dtype=torch.bool, device=Y.device)
-    col_iters = torch.zeros(s, dtype=torch.int32, device=Y.device)
-    it = tot_inner = 0
-    while it < max_iter and _any(active):
-        with hot_span("lp.round"):
-            src = Y if seed_mode == "fixed" else F
-            Yp = _het_injection(
-                het_buckets, het_base_map, reorder, F, src, beta=beta, storage=storage
-            )
-            Fi, iact = F, active
-            inner_it = 0
-            while inner_it < max_inner and _any(iact):
-                Fn, delta = _plan_round(
-                    hom_buckets, Fi, Yp, c=beta, use_kernel=False, storage=storage
-                )
-                Fi = torch.where(iact[None, :], Fn, Fi)
-                iact = iact & ~(delta < sigma)
-                inner_it += 1
-            col_iters += active.int()
-            F, active = _halt(F, Fi, active, sigma)
-            it += 1
-            tot_inner += inner_it
-    return F[hom_rank], it, tot_inner, col_iters
+    F, it, inner, col_iters = _dhlp1_converge(
+        lambda F: _het_injection(
+            het_buckets, het_base_map, reorder, F, Y if seed_mode == "fixed" else F,
+            beta=beta, storage=storage,
+        ),
+        lambda Yp, Fi: _plan_round(
+            hom_buckets, Fi, Yp, c=beta, use_kernel=False, storage=storage
+        ),
+        F0[hom_perm],
+        sigma=sigma,
+        max_iter=max_iter,
+        max_inner=max_inner,
+    )
+    return F[hom_rank], it, inner, col_iters
 
 
 class _CSRPayload:
@@ -719,33 +688,14 @@ class SparseCSREngine(LPEngine):
         F0: Optional[np.ndarray] = None,
     ) -> SolveResult:
         cfg = self.config
-        Y = np.asarray(Y)
-        if Y.ndim == 1:
-            Y = Y[:, None]
-        chunks = chunk_columns(Y, cfg.seed_chunk)
-        f0_chunks = (
-            [None] * len(chunks)
-            if F0 is None
-            else chunk_columns(np.asarray(F0), cfg.seed_chunk)
-        )
-        parts: List[np.ndarray] = []
-        outer, inner_tot, cols = 0, 0, []
-        for Yc, F0c in zip(chunks, f0_chunks):
-            with hot_span("lp.upload"):
-                Yd = self._tensor(Yc)
-                F0d = Yd if F0c is None else self._tensor(F0c)
-            F, it, ti, ci = self._solve_chunk(op, Yd, F0d)
-            with hot_span("lp.download"):
-                parts.append(to_numpy_f64(F))
-                cols.append(ci.cpu().numpy())
-            outer = max(outer, it)
-            inner_tot += ti
-        return SolveResult(
-            F=parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1),
-            outer_iters=outer,
-            inner_iters=inner_tot,
-            converged=bool(outer < cfg.max_iter),
-            per_column_iters=np.concatenate(cols),
+        Y, F0 = seed_matrix(op.num_nodes, Y, F0)
+        return solve_chunks(
+            Y,
+            F0,
+            chunk=cfg.seed_chunk,
+            max_iter=cfg.max_iter,
+            upload=self._tensor,
+            solve=lambda Yd, F0d: self._solve_chunk(op, Yd, F0d),
         )
 
     def _solve_chunk(self, op: Operator, Y, F0):

@@ -92,21 +92,10 @@ def observed_solve(
     (max residual, summed active columns) so the recorded convergence
     curve describes the whole solve, not the last chunk.
     """
-    from repro_torch.core.network import seeds_identity
+    from repro_torch.core.network import seed_matrix
 
     op = engine.prepare(net)
-    n = op.num_nodes
-    Y = seeds_identity(n) if seeds is None else np.asarray(seeds, dtype=np.float64)
-    if Y.ndim == 1:
-        Y = Y[:, None]
-    if Y.shape[0] != n:
-        raise ValueError(f"seeds must have {n} rows, got {Y.shape}")
-    if F0 is not None:
-        F0 = np.asarray(F0, dtype=np.float64)
-        if F0.ndim == 1:
-            F0 = F0[:, None]
-        if F0.shape != Y.shape:
-            raise ValueError(f"F0 shape {F0.shape} must match seeds shape {Y.shape}")
+    Y, F0 = seed_matrix(op.num_nodes, seeds, F0, dtype=np.float64)
 
     cfg = engine.config
     ncols = Y.shape[1]

@@ -9,6 +9,7 @@ bf16 ``2e-2``), equal ``outer_iters`` and ``per_column_iters``, and
 identical drug→target top-10 lists.
 """
 
+import re
 import warnings
 
 import numpy as np
@@ -61,6 +62,8 @@ ENGINE_CASES = {
     "seed_chunk": dict(seed_mode="fixed", seed_chunk=40),
     "bf16": dict(seed_mode="fixed", storage_dtype="bf16"),
     "warm_start": dict(seed_mode="fixed"),
+    # stopped by max_iter before σ: the halt's cap path
+    "capped": dict(seed_mode="fixed", max_iter=3),
 }
 
 
@@ -76,6 +79,8 @@ def test_csr_engines_match_reference(nets, backend, case):
     if case == "warm_start":
         cold = te.make_engine(backend, tc.LPConfig(**kw), device="cpu").run(pnet)
         assert got.outer_iters < cold.outer_iters
+    if case == "capped":
+        assert not got.converged and got.outer_iters == 3
 
 
 @pytest.mark.parametrize("backend", ["kernel", "sparse"])
@@ -105,6 +110,7 @@ DENSE_CASES = {
     "unfused": dict(seed_mode="fixed", fused=False),
     "dhlp1": dict(alg="dhlp1"),
     "warm_start": dict(seed_mode="fixed"),
+    "capped": dict(seed_mode="fixed", max_iter=3),
 }
 
 
@@ -117,6 +123,8 @@ def test_dense_heterolp_matches_reference(nets, case):
     want = rc.HeteroLP(rc.LPConfig(**kw)).run(net, F0=F0)
     got = tc.HeteroLP(tc.LPConfig(**kw), device="cpu").run(pnet, F0=F0)
     _agree(got, want, net, F32_TOL)
+    if case == "capped":
+        assert not got.converged and got.outer_iters == 3
 
 
 def test_dense_sequential_matches_reference(nets):
@@ -143,6 +151,38 @@ def test_dense_engine_round_matches_reference(nets):
     g_out, g_delta = g_eng.round_with_residual(g_eng.prepare(pnet), F, Y)
     w_out, w_delta = w_eng.round_with_residual(w_eng.prepare(net), F, Y)
     np.testing.assert_allclose(g_delta, w_delta, **F32_TOL)
+
+
+def _solve_entry(entry, pnet, **kw):
+    """One solve through one of the port's four seed-taking entries."""
+    from repro_torch.ft.solve import checkpointed_solve
+    from repro_torch.obs.solve import observed_solve
+
+    cfg = tc.LPConfig(alg="dhlp2", seed_mode="fixed", sigma=1e-4, autotune=False)
+    eng = te.make_engine("sparse", cfg, device="cpu")
+    if entry == "engine":
+        return eng.run(pnet, **kw)
+    if entry == "heterolp":
+        return tc.HeteroLP(cfg, device="cpu").run(pnet, **kw)
+    if entry == "observed":
+        return observed_solve(eng, pnet, telemetry=None, **kw)
+    return checkpointed_solve(eng, pnet, manager=None, **kw)
+
+
+@pytest.mark.parametrize("bad", ["seed_rows", "f0_shape"])
+@pytest.mark.parametrize("entry", ["engine", "heterolp", "observed", "checkpointed"])
+def test_every_entry_rejects_malformed_seeds(nets, entry, bad):
+    """Y with another row count, or F0 of another shape than Y, raises
+    before anything is solved, whichever entry takes them."""
+    net, pnet = nets
+    n = net.num_nodes
+    if bad == "seed_rows":
+        kw, match = dict(seeds=np.ones((n - 1, 2))), f"seeds must have {n} rows"
+    else:
+        kw = dict(seeds=np.eye(n)[:, :3], F0=np.zeros((n, 2)))
+        match = re.escape(f"F0 shape {(n, 2)} must match seeds shape {(n, 3)}")
+    with pytest.raises(ValueError, match=match):
+        _solve_entry(entry, pnet, **kw)
 
 
 def test_use_kernel_deprecation_shim_matches_reference():

@@ -32,10 +32,10 @@ def net():
     return ts.generate("powerlaw", scale=0.03, seed=0, cache=False).network
 
 
-def _engine(alg):
-    backend = "kernel" if alg == "dhlp2" else "sparse"
+def _engine(alg, backend=None, fused=True):
+    backend = backend or ("kernel" if alg == "dhlp2" else "sparse")
     cfg = tc.LPConfig(alg=alg, sigma=1e-4, seed_mode="fixed", max_inner=50)
-    return te.make_engine(backend, cfg, device="cpu")
+    return te.make_engine(backend, cfg, device="cpu", fused_superstep=fused)
 
 
 def _solve_and_rank(eng, net):
@@ -76,9 +76,17 @@ def test_hot_span_is_the_shared_no_op_when_nothing_records():
     assert tprof.hot_span("lp.topk") is _NULL_SPAN
 
 
-@pytest.mark.parametrize("alg", ["dhlp2", "dhlp1"])
-def test_solve_and_ranking_record_their_ranges(alg, net):
-    eng = _engine(alg)
+@pytest.mark.parametrize("alg, backend, fused", [
+    pytest.param("dhlp2", "kernel", True, id="dhlp2"),
+    pytest.param("dhlp1", "sparse", True, id="dhlp1"),
+    pytest.param("dhlp2", "sparse", True, id="dhlp2-sparse"),
+    # the node-order loops (fused_superstep=False) open the same ranges
+    pytest.param("dhlp2", "kernel", False, id="dhlp2-kernel-legacy"),
+    pytest.param("dhlp2", "sparse", False, id="dhlp2-sparse-legacy"),
+    pytest.param("dhlp1", "sparse", False, id="dhlp1-legacy"),
+])
+def test_solve_and_ranking_record_their_ranges(alg, backend, fused, net):
+    eng = _engine(alg, backend, fused)
     eng.prepare(net)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         res, tops = _solve_and_rank(eng, net)
